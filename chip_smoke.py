@@ -8,19 +8,24 @@ Phases, each printing one JSON line:
   2. build       compiles csrc/gf_apply.cu and csrc/mxu_apply.cu (nvcc,
                  sm_90a) and csrc/crc32c.cpp (g++) from this checkout, in
                  parallel; prints the ptxas register lines and the count of
-                 IMMA (int8 tensor-core) instructions in mxu_apply's SASS
+                 int8 tensor-core instructions in mxu_apply's SASS (IGMMA,
+                 the warpgroup products; IMMA, the warp ones)
   3. kernel      K1 (gf_apply) against its plain PyTorch version
                  (rs_torch.gf_apply_reference) on the same CUDA tensors, byte
-                 for byte, over ragged sizes, both row layouts, the parity
-                 matrix, every 1-loss rebuild matrix and 32 seeded 2-4-loss
-                 ones
+                 for byte, over ragged sizes (both sides of the column count
+                 where its launch shape changes), both row layouts, the
+                 parity matrix, every 1-loss rebuild matrix and 32 seeded
+                 2-4-loss ones
   4. kernel_mxu  K2 (mxu_apply) against its plain version
                  (rs_mxu.mxu_apply_reference) and against K1, byte for byte,
-                 at the same sizes and layouts over those matrices plus the
-                 RS(6,3) and RS(12,6) parity matrices, seeded rebuild matrices
-                 of both and one 16x32 random matrix
-  5. timing      CUDA-event medians of K1, K2, their plain versions and
-                 torch._int_mm on the bit-plane product alone, with the bound,
+                 at the same sizes and layouts plus the edges of its ring
+                 (one to three 1024-position stages, +-1) and of its 64- and
+                 256-position tiles, over those matrices plus the RS(6,3) and
+                 RS(12,6) parity matrices, seeded rebuild matrices of both
+                 and one 16x32 random matrix
+  5. timing      CUDA-event medians of K1, K2, their plain versions,
+                 torch._int_mm on the bit-plane product alone and a device
+                 copy of the same byte count (a yardstick), with the bound,
                  at the shapes the EC paths launch
   6-10.          the main path: write a volume of random needles, .ecx,
                  pipelined RS(10,4) encode on K2 (mxu_encode), the same encode
@@ -90,18 +95,35 @@ def bound_ms(m: int, k: int, n: int) -> tuple[float, str]:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _ptxas_lines(out: str) -> list[str]:
-    return [ln for ln in out.splitlines()
-            if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
+def _ptxas_lines(out: str) -> dict[str, str]:
+    """ptxas -v per kernel instantiation, compactly: template arguments ->
+    "registers, spill stores/loads" (the full report runs to hundreds of
+    lines and would push the result lines out of a capped log)."""
+    import re
+    report, name = {}, None
+    for ln in out.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            args = re.findall(r"(?:Li|Lb)(\d+)E", m.group(1))
+            name = "/".join(args) or m.group(1)[-40:]
+        elif name and "Used" in ln and "registers" in ln:
+            report[name] = re.search(r"Used (\d+) registers", ln).group(1)
+        elif name and "spill stores" in ln:
+            sp = re.findall(r"(\d+) bytes spill", ln)
+            if any(int(x) for x in sp):
+                report[name + " spill"] = "/".join(sp)
+    return report
 
 
-def imma_count(lib: str) -> int:
-    """IMMA (int8 tensor-core mma) instructions in the library's SASS."""
+def imma_count(lib: str) -> dict[str, int]:
+    """int8 tensor-core instructions in the library's SASS: IGMMA (the
+    warpgroup products, wgmma) and IMMA (the warp ones, mma.sync)."""
     from seaweedfs_tpu_torch.ops import rs_cuda
     cuobjdump = os.path.join(os.path.dirname(rs_cuda.nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
                           text=True, timeout=120, check=True).stdout
-    return sum(1 for ln in sass.splitlines() if "IMMA" in ln)
+    lines = sass.splitlines()
+    return {op: sum(1 for ln in lines if op in ln) for op in ("IGMMA", "IMMA")}
 
 
 def phase_build() -> None:
@@ -132,16 +154,18 @@ def phase_build() -> None:
     crc_lib, crc_s = results["crc32c"]
     if crc._native() is None:
         raise RuntimeError("crc32c library did not load")
-    imma = imma_count(mxu_lib)
-    if imma == 0:
-        raise AssertionError("mxu_apply's SASS holds no IMMA instruction: "
-                             "the product is not on the tensor cores")
+    tc = imma_count(mxu_lib)
+    if tc["IGMMA"] == 0:
+        raise AssertionError("mxu_apply's SASS holds no IGMMA instruction: "
+                             "the product is not on the warpgroup tensor "
+                             "cores")
     emit("build", gf_apply_s=round(gf_s, 3), mxu_apply_s=round(mxu_s, 3),
          crc32c_s=round(crc_s, 3), gf_apply_lib=os.path.relpath(gf_lib),
          mxu_apply_lib=os.path.relpath(mxu_lib),
          crc32c_lib=os.path.relpath(crc_lib),
          ptxas=_ptxas_lines(gf_ptxas), mxu_ptxas=_ptxas_lines(mxu_ptxas),
-         mxu_imma_instructions=imma)
+         mxu_igmma_instructions=tc["IGMMA"],
+         mxu_imma_instructions=tc["IMMA"])
 
 
 def check_matrices(seed: int):
@@ -175,7 +199,9 @@ def phase_kernel(seed: int) -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(seed)
     mats = check_matrices(seed)
-    sizes = [1, 3, 15, 17, 4097, (1 << 20) + 5, 16 << 20]
+    # ragged sizes, and both sides of rs_cuda.SMALL_N_LIMIT
+    sizes = [1, 3, 15, 17, 4097, (1 << 20) + 5, rs_cuda.SMALL_N_LIMIT - 1,
+             rs_cuda.SMALL_N_LIMIT, 16 << 20]
     checks = worst = 0
     before = rs_cuda.launches
     for n in sizes:
@@ -252,8 +278,11 @@ def phase_kernel_mxu(seed: int) -> int:
     rng = np.random.default_rng(seed + 3)
     mats = check_matrices(seed) + alt_matrices(seed) + [
         ("random 16x32", rng.integers(0, 256, (16, 32), dtype=np.uint8))]
-    # phase_kernel's sizes plus the edges of the kernel's 1024-byte step
-    sizes = [1, 3, 15, 17, 1023, 1025, 4097, (1 << 20) + 5, 16 << 20]
+    # phase_kernel's sizes plus the edges of the kernel's ring: 1, 2 and 3
+    # stages of 1024 positions +-1, a 64-position tile and a 256-position
+    # super-tile with a tail
+    sizes = [1, 3, 15, 17, 65, 127, 257, 1023, 1024, 1025, 2047, 2048, 2049,
+             3071, 3072, 3073, 4097, (1 << 20) + 5, 16 << 20]
     checks = worst = 0
     before = rs_mxu.launches
     for n in sizes:
@@ -318,7 +347,11 @@ def phase_timing(seed: int) -> list[dict]:
     the rebuild batch (16 MiB) of each scheme. At the RS(10,4) shapes also
     torch._int_mm on the bit-plane product alone (product only: no unpack,
     no mod 2, no repack, so not the same function; cuBLASLt refuses the
-    product's shape for RS(6,3)). Inputs rotate over enough buffers
+    product's shape for RS(6,3)). copy_floor_ms is a yardstick, not a
+    library call for the same function and never called by the port: the
+    device time of one torch.Tensor.copy_ that moves (k+m)*n/2 bytes each
+    way, as many bytes as the kernels move, which says what one launch of
+    that size gets from the card. Inputs rotate over enough buffers
     (>= 48 MiB, >= 192 MiB) to exceed the 50 MB L2, so every launch reads
     its inputs from HBM."""
     import torch
@@ -370,11 +403,21 @@ def phase_timing(seed: int) -> list[dict]:
         int_mm = _device_ms(
             lambda r: torch._int_mm(bmat, planes[r % sets]), 15) \
             if with_int_mm else None
+        half = (k + m) * n // 2
+        csrc = [torch.randint(0, 256, (half,), dtype=torch.uint8, device=dev,
+                              generator=gen) for _ in range(sets)]
+        cdst = [torch.empty_like(c) for c in csrc]
+        for r in range(3):
+            cdst[r % sets].copy_(csrc[r % sets])
+        copy_ms = _device_ms(
+            lambda r: cdst[r % sets].copy_(csrc[r % sets]), 30)
+        del csrc, cdst
         bms, by = bound_ms(m, k, n)
         rows.append({"shape": label, "m": m, "k": k, "n": n,
                      "gf_apply_ms": gf_ms, "gf_apply_plain_ms": gf_plain,
                      "mxu_apply_ms": mxu_ms, "mxu_apply_plain_ms": mxu_plain,
                      "int_mm_product_only_ms": int_mm,
+                     "copy_floor_ms": copy_ms,
                      "bound_ms": bms, "bound_by": by,
                      "gf_apply_input_GBps": k * n / gf_ms / 1e6,
                      "mxu_apply_input_GBps": k * n / mxu_ms / 1e6})
@@ -691,7 +734,9 @@ def kernel_entry(name: str, source: str, replaces: str, counts: PathCounts,
              "library_ms": None, "shape": row["shape"],
              "by_shape": [{"shape": r["shape"], "ms": r[f"{name}_ms"],
                            "plain_ms": r[f"{name}_plain_ms"],
-                           "bound_ms": r["bound_ms"]} for r in timing]}
+                           "bound_ms": r["bound_ms"],
+                           "copy_floor_ms": r["copy_floor_ms"]}
+                          for r in timing]}
     if name == "mxu_apply":
         entry["int_mm_product_only_ms"] = row["int_mm_product_only_ms"]
     return entry

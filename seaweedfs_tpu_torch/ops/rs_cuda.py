@@ -27,7 +27,6 @@ from seaweedfs_tpu_torch.utils import native_build
 
 MAX_ROWS = 16   # m: outputs per launch (csrc/gf_apply.cu kMaxRows)
 MAX_COLS = 32   # k: inputs per launch (one 32-bit selection mask)
-_BLOCKS_PER_SM = 8
 
 _SRC = os.path.join(native_build.CSRC_DIR, "gf_apply.cu")
 
@@ -65,7 +64,8 @@ def _load() -> ctypes.CDLL:
             lib.gf_apply_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                 ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-                ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p]
             lib.gf_apply_launch.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -90,10 +90,30 @@ def sm_count(device: torch.device) -> int:
     return _sm_count[idx]
 
 
-def max_blocks(device: torch.device) -> int:
-    """Grid cap for one launch: a few resident blocks per SM; the kernel's
-    grid-stride loop covers the rest of the columns."""
-    return sm_count(device) * _BLOCKS_PER_SM
+# Below this many columns (the encode batches of the small-block tier) a
+# block computes half of the output rows, so the launch spreads over twice
+# the blocks.
+SMALL_N_LIMIT = 4 << 20
+THREADS = 128   # threads per block (csrc/gf_apply.cu kThreads)
+MAX_GRID = (1 << 31) - 1
+
+
+def pieces_per_thread(k: int) -> int:
+    """16-byte pieces a K1 thread takes per grid-stride step, as
+    gf_apply_launch picks its instantiation: two for k <= 16, else one."""
+    return 2 if k <= 16 else 1
+
+
+def launch_shape(m: int, k: int, n: int) -> tuple[int, int]:
+    """K1's launch for an (m, k) matrix over n columns: (rows, grid) =
+    output rows per block (the grid's y extent is ceil(m / rows)) and
+    blocks along the columns, enough to cover every 16-byte piece once
+    (the kernel's grid-stride loop takes the rest only past MAX_GRID).
+    One launch whatever n is."""
+    rows = -(-m // 2) if n < SMALL_N_LIMIT else m
+    pieces = -(-n // 16)
+    per_block = THREADS * pieces_per_thread(k)
+    return rows, max(1, min(-(-pieces // per_block), MAX_GRID))
 
 
 def _check(mat: np.ndarray, data: torch.Tensor,
@@ -161,11 +181,12 @@ def run_kernel(name: str, mat, data: torch.Tensor,
 def _launch(mat: np.ndarray, data: torch.Tensor, out: torch.Tensor,
             vec: int, stream: int) -> int:
     m, k = mat.shape
+    n = data.shape[1]
     masks = selection_masks(mat)  # alive until the call returns
     return _load().gf_apply_launch(
         masks.ctypes.data, m, k, data.data_ptr(), data.stride(0),
-        out.data_ptr(), out.stride(0), data.shape[1], vec,
-        max_blocks(data.device), stream)
+        out.data_ptr(), out.stride(0), n, vec,
+        *launch_shape(m, k, n), stream)
 
 
 def gf_apply(mat, data: torch.Tensor,

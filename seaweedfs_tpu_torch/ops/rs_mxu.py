@@ -67,6 +67,58 @@ def _device_bitplane(coeffs: bytes, m: int, k: int,
     return torch.from_numpy(bitplane_matrix(mat)).to(device, torch.float32)
 
 
+# The valid int8 wgmma N the kernel is built for.
+_WGMMA_WIDTHS = (8, 16, 24, 32, 48, 64, 128)
+_K_STEPS = (1, 2, 3, 4, 8)
+# Bytes between the two 16-byte K halves of a K step (LBO) and between
+# groups of 8 N rows (SBO) in the kernel's no-swizzle B layout.
+IMAGE_LBO, IMAGE_SBO = 128, 256
+
+
+def wgmma_width(m: int) -> int:
+    """N of the kernel's product for m output rows: 8m, padded up to a
+    valid int8 wgmma width the kernel is built for (128 for m > 8)."""
+    if not 1 <= m <= rs_cuda.MAX_ROWS:
+        raise ValueError(f"m must be in 1..{rs_cuda.MAX_ROWS}, got {m}")
+    return next(w for w in _WGMMA_WIDTHS if w >= 8 * m)
+
+
+def k_steps(k: int) -> int:
+    """K steps of 32 planes (four input rows) the kernel runs for k
+    inputs: ceil(k / 4), padded up to 1, 2, 3, 4 or 8."""
+    if not 1 <= k <= rs_cuda.MAX_COLS:
+        raise ValueError(f"k must be in 1..{rs_cuda.MAX_COLS}, got {k}")
+    return next(c for c in _K_STEPS if 4 * c >= k)
+
+
+def bitplane_image(mat) -> np.ndarray:
+    """B as the kernel holds it in shared memory, (width * 32 * ksteps,)
+    uint8: for K step c, N row n and K column kk (plane 32c + kk), the
+    byte at c * width * 32 + (n // 8) * SBO + (kk // 16) * LBO
+    + (n % 8) * 16 + kk % 16 — wgmma's no-swizzle K-major core matrices
+    of 8 rows x 16 bytes. Rows n >= 8m and planes >= 8k are zero."""
+    mat = as_matrix(mat)
+    m, k = mat.shape
+    width, steps = wgmma_width(m), k_steps(k)
+    padded = np.zeros((width, 32 * steps), dtype=np.uint8)
+    padded[:8 * m, :8 * k] = bitplane_matrix(mat)
+    # (n8, r, c, half, col) -> (c, n8, half, r, col)
+    cores = padded.reshape(width // 8, 8, steps, 2, 16).transpose(2, 0, 3, 1, 4)
+    return np.ascontiguousarray(cores.reshape(-1))
+
+
+@functools.lru_cache(maxsize=256)
+def _device_image(coeffs: bytes, m: int, k: int,
+                  device: torch.device) -> torch.Tensor:
+    """bitplane_image on `device`, made once per matrix. The copy comes
+    from pageable host memory; the stream is synchronised once so that a
+    launch on any other stream finds the image complete."""
+    mat = np.frombuffer(coeffs, dtype=np.uint8).reshape(m, k)
+    img = torch.from_numpy(bitplane_image(mat)).to(device)
+    torch.cuda.current_stream(device).synchronize()
+    return img
+
+
 def _unpack_planes(data: torch.Tensor) -> torch.Tensor:
     """(k, n) uint8 -> (8k, n) uint8 of 0/1, row 8j+b = bit b of data[j].
     uint8 `>>` and `& 1` (torch on the CPU has no uint32 shifts, and `>>`
@@ -123,9 +175,10 @@ def _load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build()[0])
             lib.mxu_apply_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-                ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             lib.mxu_apply_launch.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -134,10 +187,11 @@ def _load() -> ctypes.CDLL:
 def _launch(mat: np.ndarray, data: torch.Tensor, out: torch.Tensor,
             vec: int, stream: int) -> int:
     m, k = mat.shape
-    coeffs = np.ascontiguousarray(mat)  # alive until the call returns
+    image = _device_image(np.ascontiguousarray(mat).tobytes(), m, k,
+                          data.device)
     return _load().mxu_apply_launch(
-        coeffs.ctypes.data, m, k, data.data_ptr(), data.stride(0),
-        out.data_ptr(), out.stride(0), data.shape[1], vec,
+        image.data_ptr(), wgmma_width(m), k_steps(k), m, k, data.data_ptr(),
+        data.stride(0), out.data_ptr(), out.stride(0), data.shape[1], vec,
         rs_cuda.sm_count(data.device), stream)
 
 
