@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (seaweedfs_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--volume-mb 1024] [--alt-volume-mb 256] [--seed 0]
+    python3 chip_smoke.py [--volume-mb 1024] [--alt-volume-mb 256]
+                          [--batch-volumes 64] [--batch-volume-mb 32]
+                          [--seed 0]
 
 Phases, each printing one JSON line:
   1. device      card name and `nvidia-smi` name / power limit
   2. build       compiles csrc/gf_apply.cu and csrc/mxu_apply.cu (nvcc,
-                 sm_90a) and csrc/crc32c.cpp (g++) from this checkout, in
-                 parallel; prints the ptxas register lines and the count of
-                 int8 tensor-core instructions in mxu_apply's SASS (IGMMA,
-                 the warpgroup products; IMMA, the warp ones)
+                 sm_90a), csrc/crc32c.cpp and csrc/rs_cpu.cpp (g++, the host
+                 coder) from this checkout, in parallel; prints the ptxas
+                 register lines and the count of int8 tensor-core
+                 instructions in mxu_apply's SASS (IGMMA, the warpgroup
+                 products; IMMA, the warp ones)
   3. kernel      K1 (gf_apply) against its plain PyTorch version
                  (rs_torch.gf_apply_reference) on the same CUDA tensors, byte
                  for byte, over ragged sizes (both sides of the column count
@@ -23,24 +26,51 @@ Phases, each printing one JSON line:
                  256-position tiles, over those matrices plus the RS(6,3) and
                  RS(12,6) parity matrices, seeded rebuild matrices of both
                  and one 16x32 random matrix
-  5. timing      CUDA-event medians of K1, K2, their plain versions,
+  5. kernel_batch  K1's batch entry (gf_apply_batch) against its plain
+                 version and against per-job gf_apply, byte for byte:
+                 batches of 1, 2, 3 and 64 jobs, ragged and 1 MiB columns,
+                 contiguous, 16-byte-pitched and unaligned row and job
+                 strides, shared matrices (RS(10,4), RS(6,3), RS(12,6)
+                 parity, 16x32) and per-job matrices with fewer rows than
+                 the batch's (zero rows)
+  6. timing      CUDA-event medians of K1, K2, their plain versions,
                  torch._int_mm on the bit-plane product alone and a device
                  copy of the same byte count (a yardstick), with the bound,
-                 at the shapes the EC paths launch
-  6-10.          the main path: write a volume of random needles, .ecx,
+                 at the shapes the EC paths launch; then K1's batch entry
+                 at (64,10,1 MiB)->4 (shared matrix) and (8,10,16 MiB)->4
+                 (a rebuild matrix per job) beside 64 (8) single launches
+                 of the same work
+  7-11.          the main path: write a volume of random needles, .ecx,
                  pipelined RS(10,4) encode on K2 (mxu_encode), the same encode
                  on K1 with every shard sha256-equal to K2's, drop shards
                  {0,5,11,13}, pipelined rebuild on K1, decode to .dat, read
                  every needle back with its CRC checked
-  11. alt_scheme for RS(6,3) and RS(12,6): a volume of --alt-volume-mb, .ecx,
+  12. alt_scheme for RS(6,3) and RS(12,6): a volume of --alt-volume-mb, .ecx,
                  .vif naming the scheme, pipelined encode on K2, drop m
                  shards mixing data and parity, pipelined rebuild on K1
                  (sha256-equal), decode to .dat (sha256-equal), every needle
                  read back with its CRC checked
-Then the kernel summary line, the `nvidia-smi` line, and the result line
-{"ok": true, "device": {...}} last. Each path phase is driven with both
-kernels' launch counters set to 0 just before it and read just after. Any
-failure raises: the exit code is then not 0 and no result line is printed.
+  13. batch_volumes  BASELINE config 4, the cross-volume batch path:
+                 --batch-volumes volumes of --batch-volume-mb, each encoded
+                 by its own pipelined_encode_file thread, all at once,
+                 through one EcBatchScheduler (5 ms window, batches of up
+                 to 64) and one BatchCoder: every shard sha256-equal to
+                 CpuCoderMT's encode_array of the same rows, no CPU batch,
+                 no fallback, one launch of K1's batch entry per mesh
+                 batch; the same volumes encoded one after another with
+                 TorchCoder for comparison; then 8 volumes lose 1-4 shards
+                 (data, parity, mixed), are rebuilt concurrently through
+                 the same BatchCoder (sha256-equal, at least one launch
+                 carrying different matrices), decoded and read back
+  14. batch_encode_volumes  streaming.batch_encode_volumes at
+                 (64,10,1 MiB) without a mesh, on batch_mesh() and on a
+                 one-card ('data', 'shard', 'seq') mesh, against CpuCoderMT;
+                 distributed_rebuild on that mesh for three loss patterns
+Then the memory line, the kernel summary line, the `nvidia-smi` line, and
+the result line {"ok": true, "device": {...}} last. Each path phase is
+driven with every kernel entry's launch counter set to 0 just before it
+and read just after. Any failure raises: the exit code is then not 0 and
+no result line is printed.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero before printing anything.
 """
@@ -64,6 +94,13 @@ LOSS = (0, 5, 11, 13)
 ALT_SCHEMES = ((6, 3), (12, 6))  # BASELINE.json config 5
 K1_REPLACES = "seaweedfs_tpu/ops/rs_pallas.py:56"  # pallas_apply_fn; body _make_kernel :42
 K2_REPLACES = "seaweedfs_tpu/ops/rs_mxu.py:88"  # mxu_apply_fn; body _make_kernel :65
+# K1's batch entry replaces K1 on the batch path; the JAX package runs that
+# path as XLA programs, not Pallas kernels
+K1_BATCH_COUNTERPART = ("seaweedfs_tpu/ops/rs_mesh.py:46 batch_encode_fn, "
+                        ":63 batch_apply_fn (XLA, not Pallas)")
+BATCH_LOSSES = ((3,), (12,), (0, 7), (10, 13), (2, 9, 10), (0, 3, 7, 9),
+                (10, 11, 12, 13), (0, 5, 11, 13))
+BATCH_ENCODE_SHAPE = (64, 10, 1 << 20)  # volumes, k, columns (config 4)
 
 
 def emit(phase: str, **fields) -> None:
@@ -106,6 +143,8 @@ def _ptxas_lines(out: str) -> dict[str, str]:
         if m:
             args = re.findall(r"(?:Li|Lb)(\d+)E", m.group(1))
             name = "/".join(args) or m.group(1)[-40:]
+            if "batch" in m.group(1):
+                name = "batch " + name
         elif name and "Used" in ln and "registers" in ln:
             report[name] = re.search(r"Used (\d+) registers", ln).group(1)
         elif name and "spill stores" in ln:
@@ -127,6 +166,7 @@ def imma_count(lib: str) -> dict[str, int]:
 
 
 def phase_build() -> None:
+    from seaweedfs_tpu_torch.native import rs_native
     from seaweedfs_tpu_torch.ops import rs_cuda, rs_mxu
     from seaweedfs_tpu_torch.utils import crc
 
@@ -141,7 +181,8 @@ def phase_build() -> None:
 
     threads = [threading.Thread(target=run, args=("gf_apply", rs_cuda.build)),
                threading.Thread(target=run, args=("mxu_apply", rs_mxu.build)),
-               threading.Thread(target=run, args=("crc32c", crc.build))]
+               threading.Thread(target=run, args=("crc32c", crc.build)),
+               threading.Thread(target=run, args=("rs_cpu", rs_native.build))]
     for t in threads:
         t.start()
     for t in threads:
@@ -152,8 +193,11 @@ def phase_build() -> None:
     (gf_lib, gf_ptxas), gf_s = results["gf_apply"]
     (mxu_lib, mxu_ptxas), mxu_s = results["mxu_apply"]
     crc_lib, crc_s = results["crc32c"]
+    rs_cpu_lib, rs_cpu_s = results["rs_cpu"]
     if crc._native() is None:
         raise RuntimeError("crc32c library did not load")
+    if not rs_native.available():
+        raise RuntimeError("the host coder's library did not load")
     tc = imma_count(mxu_lib)
     if tc["IGMMA"] == 0:
         raise AssertionError("mxu_apply's SASS holds no IGMMA instruction: "
@@ -162,7 +206,9 @@ def phase_build() -> None:
     emit("build", gf_apply_s=round(gf_s, 3), mxu_apply_s=round(mxu_s, 3),
          crc32c_s=round(crc_s, 3), gf_apply_lib=os.path.relpath(gf_lib),
          mxu_apply_lib=os.path.relpath(mxu_lib),
-         crc32c_lib=os.path.relpath(crc_lib),
+         crc32c_lib=os.path.relpath(crc_lib), rs_cpu_s=round(rs_cpu_s, 3),
+         rs_cpu_lib=os.path.relpath(rs_cpu_lib),
+         rs_cpu_tier=rs_native.impl_name(),
          ptxas=_ptxas_lines(gf_ptxas), mxu_ptxas=_ptxas_lines(mxu_ptxas),
          mxu_igmma_instructions=tc["IGMMA"],
          mxu_imma_instructions=tc["IMMA"])
@@ -313,6 +359,95 @@ def phase_kernel_mxu(seed: int) -> int:
     return worst
 
 
+def _batch_layouts(B: int, n: int, dev, gen):
+    """(name, (B, 32, n) uint8 CUDA tensor) pairs: contiguous; rows on a
+    16-byte pitch; and odd row and job strides from an odd offset (the
+    byte path)."""
+    import torch
+    pitch = -(-n // 16) * 16
+    rs, js = n + 3, 32 * (n + 3) + 5
+    yield "contiguous", torch.randint(0, 256, (B, 32, n), dtype=torch.uint8,
+                                      device=dev, generator=gen)
+    yield "aligned_rows", torch.randint(
+        0, 256, (B, 32, pitch), dtype=torch.uint8, device=dev,
+        generator=gen)[:, :, :n]
+    flat = torch.randint(0, 256, (B * js + 1,), dtype=torch.uint8,
+                         device=dev, generator=gen)
+    yield "unaligned", flat.as_strided((B, 32, n), (js, rs, 1), 1)
+
+
+def batch_matrix_sets(seed: int, B: int):
+    """(name, matrices) pairs for a batch of B jobs: shared parity
+    matrices of the three schemes and a random 16x32 matrix; per-job
+    rebuild matrices of each scheme (1..m rows, so most jobs have fewer
+    rows than the batch and zero rows pad them) and random per-job ones
+    (1..16 rows over 32 inputs)."""
+    import numpy as np
+    rng = np.random.default_rng(seed + B)
+    rs104 = [m for _, m in check_matrices(seed)[1:]]
+    alt = alt_matrices(seed)
+    sets = [("RS(10,4) parity", check_matrices(seed)[0][1])]
+    sets += [(name, mat) for name, mat in alt if "parity" in name]
+    sets.append(("random 16x32", rng.integers(0, 256, (16, 32),
+                                             dtype=np.uint8)))
+    sets.append(("per-job RS(10,4) rebuild",
+                 [rs104[int(i)] for i in rng.integers(0, len(rs104), B)]))
+    for k, m in ALT_SCHEMES:
+        mats = [mat for name, mat in alt
+                if name.startswith(f"RS({k},{m}) lose")]
+        sets.append((f"per-job RS({k},{m}) rebuild",
+                     [mats[int(i)] for i in rng.integers(0, len(mats), B)]))
+    sets.append(("per-job random up to 16x32",
+                 [rng.integers(0, 256, (int(rng.integers(1, 17)), 32),
+                               dtype=np.uint8) for _ in range(B)]))
+    return sets
+
+
+def phase_kernel_batch(seed: int) -> int:
+    """K1's batch entry against its plain version and against per-job
+    gf_apply launches on the same CUDA tensors, byte for byte."""
+    import torch
+    from seaweedfs_tpu_torch.ops import rs_cuda
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    small = [4, 16, 4097, 4100, 1 << 20, (1 << 20) + 4]
+    cases = [(B, n) for B in (1, 2, 3) for n in small] + \
+        [(64, n) for n in (4, 4100, (1 << 20) + 4)]
+    checks = worst = 0
+    before = (rs_cuda.batch_launches, rs_cuda.launches)
+    for B, n in cases:
+        sets = batch_matrix_sets(seed, B)
+        for layout, base in _batch_layouts(B, n, dev, gen):
+            for name, mats in sets:
+                mat, per_job = rs_cuda.batch_matrices(mats, B)
+                src = base[:, :mat.shape[-1]]
+                got = rs_cuda.gf_apply_batch(mats, src)
+                plain = rs_cuda.gf_apply_batch_reference(mats, src)
+                single = torch.zeros_like(got)
+                for b in range(B):  # a per-job matrix without its zero rows
+                    jm = mats[b] if per_job else mat
+                    rs_cuda.gf_apply(jm, src[b], single[b, :len(jm)])
+                torch.cuda.synchronize()
+                for other, what in ((plain, "its plain version"),
+                                    (single, "per-job gf_apply")):
+                    err = int((got.to(torch.int16) - other.to(torch.int16))
+                              .abs().max().item())
+                    worst = max(worst, err)
+                    checks += 1
+                    if err or not torch.equal(got, other):
+                        raise AssertionError(
+                            f"gf_apply_batch differs from {what}: B={B} "
+                            f"n={n} {layout} {name} max_abs_err={err}")
+        del base
+    emit("kernel_batch", checks=checks, cases=[list(c) for c in cases],
+         layouts=["contiguous", "aligned_rows", "unaligned"],
+         matrix_sets=[name for name, _ in batch_matrix_sets(seed, 2)],
+         against=["plain", "per-job gf_apply"], max_abs_err=worst,
+         launches=rs_cuda.batch_launches - before[0],
+         single_launches=rs_cuda.launches - before[1])
+    return worst
+
+
 def _device_ms(fn, reps: int) -> float:
     """Median device time of one call of fn(r). Each call is enqueued
     behind a spin kernel (torch.cuda._sleep) and bracketed by an event
@@ -428,6 +563,86 @@ def phase_timing(seed: int) -> list[dict]:
     return rows
 
 
+def phase_timing_batch(seed: int) -> list[dict]:
+    """K1's batch entry at the shapes of the batch path, each beside the
+    same jobs as single gf_apply launches (one after another on the
+    stream), the plain version (job by job, summed), copy_floor_ms (one
+    device copy of the batch's bytes) and the bound: 64 encode jobs of 10x1 MiB -> 4 with the
+    shared parity matrix, and 8 rebuild jobs of 10x16 MiB -> 4 with 8
+    different rebuild matrices. Two input sets (>= 1.3 GB) rotate, well
+    past the 50 MB L2."""
+    import numpy as np
+    import torch
+    from seaweedfs_tpu_torch.models.coder import make_coder
+    from seaweedfs_tpu_torch.ops import rs_cuda
+    from seaweedfs_tpu_torch.ops.rs_torch import gf_apply_reference
+    from seaweedfs_tpu_torch.storage.erasure_coding.encoder import \
+        plan_rebuild_sources
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    coder = make_coder()
+    rng = np.random.default_rng(seed + 6)
+    rebuild = []
+    while len(rebuild) < 8:
+        lost = sorted(int(x) for x in rng.choice(14, 4, replace=False))
+        mat = plan_rebuild_sources(
+            coder, [i for i in range(14) if i not in lost], lost)[1]
+        if not any(np.array_equal(mat, r) for r in rebuild):
+            rebuild.append(mat)
+    shapes = [("batch encode 64x10x1MiB->4 (shared matrix)", coder.parity,
+               64, 1 << 20),
+              ("batch rebuild 8x10x16MiB->4 (a matrix per job)", rebuild,
+               8, 16 << 20)]
+    rows = []
+    before = (rs_cuda.launches, rs_cuda.batch_launches)
+    for label, mats, B, n in shapes:
+        mat, per_job = rs_cuda.batch_matrices(mats, B)
+        m, k = mat.shape[-2:]
+        ins = [torch.randint(0, 256, (B, k, n), dtype=torch.uint8,
+                             device=dev, generator=gen) for _ in range(2)]
+        outs = [torch.empty((B, m, n), dtype=torch.uint8, device=dev)
+                for _ in range(2)]
+
+        def singles(r):
+            for b in range(B):
+                rs_cuda.gf_apply(mat[b] if per_job else mat, ins[r % 2][b],
+                                 outs[r % 2][b])
+
+        for r in range(3):
+            rs_cuda.gf_apply_batch(mats, ins[r % 2], outs[r % 2])
+            singles(r)
+            gf_apply_reference(mat[0] if per_job else mat, ins[r % 2][0])
+        batch_ms = _device_ms(lambda r: rs_cuda.gf_apply_batch(
+            mats, ins[r % 2], outs[r % 2]), 30)
+        singles_ms = _device_ms(singles, 15)
+        # the plain version job by job, summed: a whole batch of its
+        # small kernels overflows the launch queue, so it cannot be
+        # enqueued ahead of the card in one piece
+        plain_ms = sum(_device_ms(lambda r, b=b: gf_apply_reference(
+            mat[b] if per_job else mat, ins[r % 2][b]), 3) for b in range(B))
+        half = B * (k + m) * n // 2
+        del outs
+        csrc = [torch.randint(0, 256, (half,), dtype=torch.uint8, device=dev,
+                              generator=gen) for _ in range(2)]
+        cdst = [torch.empty_like(c) for c in csrc]
+        for r in range(3):
+            cdst[r % 2].copy_(csrc[r % 2])
+        copy_ms = _device_ms(lambda r: cdst[r % 2].copy_(csrc[r % 2]), 30)
+        del csrc, cdst, ins
+        bms, by = bound_ms(m, k, B * n)
+        rows.append({"shape": label, "B": B, "m": m, "k": k, "n": n,
+                     "gf_apply_batch_ms": batch_ms,
+                     "gf_apply_batch_plain_ms": plain_ms,
+                     "single_launches": B, "singles_ms": singles_ms,
+                     "copy_floor_ms": copy_ms, "bound_ms": bms,
+                     "bound_by": by,
+                     "input_GBps": B * k * n / batch_ms / 1e6})
+    emit("timing_batch", shapes=rows, launches={
+        "gf_apply": rs_cuda.launches - before[0],
+        "gf_apply_batch": rs_cuda.batch_launches - before[1]})
+    return rows
+
+
 def make_volume(work: str, volume_mb: int, seed: int, vid: int = 1):
     import numpy as np
     from seaweedfs_tpu_torch.storage.needle import Needle
@@ -456,11 +671,11 @@ def make_volume(work: str, volume_mb: int, seed: int, vid: int = 1):
 
 
 class PathCounts:
-    """Both kernels' launches on the paths, phase by phase: each phase is
-    driven with both counters set to 0 just before it (start) and read
-    just after (read)."""
+    """The kernel entries' launches on the paths, phase by phase: each
+    phase is driven with every counter set to 0 just before it (start) and
+    read just after (read)."""
 
-    KERNELS = ("gf_apply", "mxu_apply")
+    KERNELS = ("gf_apply", "mxu_apply", "gf_apply_batch")
 
     def __init__(self):
         self.by_phase: dict[str, dict[str, int]] = {}
@@ -469,19 +684,22 @@ class PathCounts:
     def start() -> None:
         from seaweedfs_tpu_torch.ops import rs_cuda, rs_mxu
         rs_cuda.launches = 0
+        rs_cuda.batch_launches = 0
         rs_mxu.launches = 0
 
     def read(self, phase: str, kernel: str, batches: int) -> dict:
         """Record the phase's counts; the phase must have launched
-        `kernel` once per batch and the other kernel never."""
+        `kernel` once per batch and the other entries never."""
         from seaweedfs_tpu_torch.ops import rs_cuda, rs_mxu
-        got = {"gf_apply": rs_cuda.launches, "mxu_apply": rs_mxu.launches}
+        got = {"gf_apply": rs_cuda.launches, "mxu_apply": rs_mxu.launches,
+               "gf_apply_batch": rs_cuda.batch_launches}
         self.by_phase[phase] = got
-        other = next(k for k in self.KERNELS if k != kernel)
-        if got[kernel] != batches or batches == 0 or got[other] != 0:
+        others = [k for k in self.KERNELS if k != kernel]
+        if got[kernel] != batches or batches == 0 or \
+                any(got[o] for o in others):
             raise AssertionError(
                 f"{phase}: launches {got} for {batches} batches; expected "
-                f"{kernel} once per batch and {other} never")
+                f"{kernel} once per batch and {others} never")
         return got
 
     def of(self, kernel: str) -> dict[str, int]:
@@ -721,6 +939,324 @@ def alt_scheme(work: str, k: int, m: int, volume_mb: int, seed: int,
                  f"{volume_mb} MiB volume for the smoke's time limit")
 
 
+def _run_threads(calls) -> None:
+    """Run each (fn, args, kwargs) in its own thread, all at once; re-raise
+    the first failure after every thread has ended."""
+    errors = []
+
+    def run(fn, args, kwargs):
+        try:
+            fn(*args, **kwargs)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=c) for c in calls]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+
+
+def cpu_shard_sha(base: str, dat_size: int, cpu) -> list[str]:
+    """sha256 of every shard as CpuCoderMT's encode_array of the .dat's
+    rows gives them: the independent host check of a volume's shards."""
+    import numpy as np
+    from seaweedfs_tpu_torch.parallel import streaming
+    from seaweedfs_tpu_torch.storage.erasure_coding import layout
+    k, m = cpu.scheme.data_shards, cpu.scheme.parity_shards
+    digests = [hashlib.sha256() for _ in range(k + m)]
+    with open(base + ".dat", "rb") as f:
+        for row_off, block, b, step in layout.iter_encode_batches(
+                dat_size, layout.LARGE_BLOCK_SIZE, layout.SMALL_BLOCK_SIZE,
+                streaming.DEFAULT_PIPE_BATCH, k):
+            rows = np.zeros((k, step), dtype=np.uint8)  # zero past EOF
+            for i in range(k):
+                f.seek(row_off + i * block + b)
+                f.readinto(memoryview(rows[i]))
+            for h, row in zip(digests, [*rows, *cpu.encode_array(rows)]):
+                h.update(row)
+    return [h.hexdigest() for h in digests]
+
+
+def _hist(snap: dict) -> dict:
+    """A histogram snapshot, compactly: bucket bounds and per-bucket
+    counts (the last bucket is +Inf) by label."""
+    return {"buckets": snap["buckets"],
+            "counts": {"/".join(lbl) or "-": c
+                       for lbl, c, _, _ in snap["series"]}}
+
+
+def batch_volumes(work: str, n_vol: int, volume_mb: int, seed: int,
+                  counts: PathCounts) -> dict:
+    """13. BASELINE config 4 through the batch scheduler: concurrent
+    encodes of n_vol volumes, the check against CpuCoderMT, the same
+    volumes on TorchCoder one after another, concurrent rebuilds of 8 of
+    them, decode and read-back."""
+    import numpy as np
+    from seaweedfs_tpu_torch.models.coder import DEFAULT_SCHEME, make_coder
+    from seaweedfs_tpu_torch.ops.rs_cpu import CpuCoderMT
+    from seaweedfs_tpu_torch.ops.rs_mesh import MeshCoder
+    from seaweedfs_tpu_torch.parallel import streaming
+    from seaweedfs_tpu_torch.parallel.batcher import (BatchCoder,
+                                                      EcBatchScheduler)
+    from seaweedfs_tpu_torch.storage.erasure_coding import (decoder,
+                                                            ec_volume,
+                                                            encoder, layout)
+    total = DEFAULT_SCHEME.total_shards
+    root = os.path.join(work, "batch")
+    seconds = {}
+    t0 = time.monotonic()
+    vols = []
+    for v in range(n_vol):
+        d = os.path.join(root, f"v{v}")
+        os.makedirs(d)
+        base, payloads, version = make_volume(d, volume_mb,
+                                              seed * 1000 + 100 + v)
+        encoder.write_sorted_ecx(base)
+        ec_volume.write_volume_info(base, version, DEFAULT_SCHEME)
+        # the needles of the volumes that are rebuilt are read back
+        vols.append((d, base, payloads if v < len(BATCH_LOSSES) else None,
+                     os.path.getsize(base + ".dat")))
+    seconds["volumes"] = time.monotonic() - t0
+    dat_bytes = sum(v[3] for v in vols)
+    dat_sha = [sha256_file(base + ".dat")
+               for _, base, _, _ in vols[:len(BATCH_LOSSES)]]
+
+    mesh_coder = MeshCoder(n_devices=1)  # one launch per mesh batch
+    mixed = []  # distinct matrices in each rebuild launch
+    dispatch_s = [0.0]  # the dispatcher's time inside MeshCoder calls
+    encode_batch, rebuild_batch = mesh_coder.encode_batch, \
+        mesh_coder.rebuild_batch
+
+    def timed_encode(jobs):
+        t0 = time.monotonic()
+        try:
+            return encode_batch(jobs)
+        finally:
+            dispatch_s[0] += time.monotonic() - t0
+
+    def timed_rebuild(src, mats):
+        mixed.append(len({(m.shape, m.tobytes()) for m in map(np.asarray,
+                                                               mats)}))
+        t0 = time.monotonic()
+        try:
+            return rebuild_batch(src, mats)
+        finally:
+            dispatch_s[0] += time.monotonic() - t0
+
+    mesh_coder.encode_batch = timed_encode
+    mesh_coder.rebuild_batch = timed_rebuild
+    sched = EcBatchScheduler(mesh_coder=mesh_coder, window_s=0.005,
+                             max_batch=64)
+    bc = BatchCoder(sched)
+    try:
+        enc_stats = [{} for _ in vols]
+        counts.start()
+        t0 = time.monotonic()
+        _run_threads([(streaming.pipelined_encode_file, (base,),
+                       {"coder": bc, "stats": st})
+                      for (_, base, _, _), st in zip(vols, enc_stats)])
+        enc_wall = time.monotonic() - t0
+        enc_dispatch_s = dispatch_s[0]
+        enc = sched.stats()
+        enc_launches = counts.read("batch_volumes_encode", "gf_apply_batch",
+                                   enc["mesh_batches"])
+        jobs = sum(st["batches"] for st in enc_stats)
+        if enc["cpu_batches"] or enc["coder_fallbacks"] or \
+                enc["jobs_total"] != jobs:
+            raise AssertionError(f"batch encode: {jobs} jobs, stats {enc}")
+
+        t0 = time.monotonic()
+        cpu = CpuCoderMT()
+        shard_sha = []
+        for d, base, _, size in vols:
+            have = [sha256_file(base + layout.shard_ext(i))
+                    for i in range(total)]
+            if have != cpu_shard_sha(base, size, cpu):
+                raise AssertionError(f"{d}: shards differ from CpuCoderMT's")
+            shard_sha.append(have)
+        seconds["check_against_cpu"] = time.monotonic() - t0
+
+        # the same volumes one after another on TorchCoder (information)
+        torch_coder = make_coder()
+        seq_s = 0.0
+        for (d, base, _, _), sha in zip(vols, shard_sha):
+            base2 = os.path.join(d, "2")
+            os.link(base + ".dat", base2 + ".dat")
+            t0 = time.monotonic()
+            streaming.pipelined_encode_file(base2, coder=torch_coder)
+            seq_s += time.monotonic() - t0
+            for i in range(total):
+                if sha256_file(base2 + layout.shard_ext(i)) != sha[i]:
+                    raise AssertionError(f"{d}: TorchCoder's shard {i} "
+                                         "differs")
+                os.remove(base2 + layout.shard_ext(i))
+            os.remove(base2 + ".dat")
+
+        # 8 volumes lose 1-4 shards each, rebuilt concurrently
+        chosen = vols[:len(BATCH_LOSSES)]
+        for (_, base, _, _), lost in zip(chosen, BATCH_LOSSES):
+            for i in lost:
+                os.remove(base + layout.shard_ext(i))
+        mesh_before = sched.mesh_batches
+        mixed.clear()
+        dispatch_s[0] = 0.0
+        reb_stats = [{} for _ in chosen]
+        rebuilt = [None] * len(chosen)
+
+        def rebuild(j, base):
+            rebuilt[j] = streaming.pipelined_rebuild_files(
+                base, coder=bc, batch_size=layout.SMALL_BLOCK_SIZE,
+                stats=reb_stats[j])
+
+        counts.start()
+        t0 = time.monotonic()
+        _run_threads([(rebuild, (j, base), {})
+                      for j, (_, base, _, _) in enumerate(chosen)])
+        reb_wall = time.monotonic() - t0
+        reb = sched.stats()
+        reb_launches = counts.read("batch_volumes_rebuild", "gf_apply_batch",
+                                   reb["mesh_batches"] - mesh_before)
+        if reb["cpu_batches"] or reb["coder_fallbacks"]:
+            raise AssertionError(f"batch rebuild: stats {reb}")
+        if max(mixed) < 2:
+            raise AssertionError(f"no rebuild launch carried two different "
+                                 f"matrices: {mixed}")
+        for (d, base, _, _), lost, got, sha in zip(chosen, BATCH_LOSSES,
+                                                   rebuilt, shard_sha):
+            if sorted(got) != list(lost):
+                raise AssertionError(f"{d}: rebuilt {got}, lost {lost}")
+            for i in lost:
+                if sha256_file(base + layout.shard_ext(i)) != sha[i]:
+                    raise AssertionError(f"{d}: rebuilt shard {i} differs")
+
+        t0 = time.monotonic()
+        needles = 0
+        for (d, base, payloads, size), sha in zip(chosen, dat_sha):
+            os.remove(base + ".dat")
+            if decoder.find_dat_file_size(base, base) != size:
+                raise AssertionError(f"{d}: decoded size differs")
+            decoder.write_dat_file(base, size)
+            if sha256_file(base + ".dat") != sha:
+                raise AssertionError(f"{d}: decoded .dat differs")
+            read_back(d, 1, payloads, total)
+            needles += len(payloads)
+        seconds["decode_and_read_back"] = time.monotonic() - t0
+    finally:
+        sched.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    rebuilt_bytes = sum(st["rebuilt_bytes"] for st in reb_stats)
+
+    def stage_sums(stats):  # busy seconds summed over the pipelines
+        return {k: sum(st.get(k, 0.0) for st in stats)
+                for k in ("read_s", "encode_s", "write_s")}
+
+    result = {
+        "volumes": n_vol, "volume_mb": volume_mb, "dat_bytes": dat_bytes,
+        "encode": {
+            "wall_s": enc_wall, "MBps": dat_bytes / enc_wall / 1e6,
+            "launches": enc_launches, "jobs": enc["jobs_total"],
+            "batches": enc["batches_total"],
+            "mesh_batches": enc["mesh_batches"],
+            "cpu_batches": enc["cpu_batches"],
+            "coder_fallbacks": enc["coder_fallbacks"],
+            "max_coalesced": enc["max_coalesced"],
+            "size_hist": _hist(enc["size_hist"]),
+            "wait_hist": _hist(enc["wait_hist"]),
+            "dispatch_s": enc_dispatch_s,
+            "stages_summed": stage_sums(enc_stats),
+            "shards_sha256_equal_to_cpu_mt": n_vol * total},
+        "torch_coder_one_after_another": {
+            "wall_s": seq_s, "MBps": dat_bytes / seq_s / 1e6,
+            "shards_sha256_equal": True},
+        "rebuild": {
+            "lost": [list(x) for x in BATCH_LOSSES], "wall_s": reb_wall,
+            "MBps": rebuilt_bytes / reb_wall / 1e6,
+            "launches": reb_launches,
+            "jobs": reb["jobs_total"] - enc["jobs_total"],
+            "mesh_batches": reb["mesh_batches"] - mesh_before,
+            "cpu_batches": reb["cpu_batches"],
+            "coder_fallbacks": reb["coder_fallbacks"],
+            "distinct_matrices_per_launch": mixed,
+            "dispatch_s": dispatch_s[0],
+            "stages_summed": stage_sums(reb_stats),
+            "rebuilt_sha256_equal": True},
+        "decoded_dat_sha256_equal": len(chosen),
+        "needles_read_back": needles, "crc_checked": True,
+        "seconds": seconds,
+        "reduced": "BASELINE config 4 (64 volumes of 30 GB) cut to "
+                   f"{n_vol} volumes of {volume_mb} MiB for the smoke's "
+                   "time limit"}
+    emit("batch_volumes", **result)
+    return result
+
+
+def batch_encode_phase(seed: int, counts: PathCounts,
+                       kernel_ms: float) -> None:
+    """14. streaming.batch_encode_volumes at BATCH_ENCODE_SHAPE without a mesh,
+    on batch_mesh() and on a one-card ('data', 'shard', 'seq') mesh,
+    against CpuCoderMT; distributed_rebuild on that mesh for three loss
+    patterns. The host-copy share of an encode_batch is 1 - the batch
+    kernel's device time over the call's wall time (warm)."""
+    import numpy as np
+    import torch
+    from seaweedfs_tpu_torch.models.coder import DEFAULT_SCHEME
+    from seaweedfs_tpu_torch.ops.rs_cpu import CpuCoderMT
+    from seaweedfs_tpu_torch.parallel import distributed
+    from seaweedfs_tpu_torch.parallel import mesh as mesh_mod
+    from seaweedfs_tpu_torch.parallel import streaming
+    rng = np.random.default_rng(seed + 9)
+    vols = rng.integers(0, 256, BATCH_ENCODE_SHAPE, dtype=np.uint8)
+    cpu = CpuCoderMT()
+    want = np.stack([cpu.encode_array(v) for v in vols])
+    meshes = [("no mesh", None), ("batch_mesh()", mesh_mod.batch_mesh()),
+              ("make_mesh(1)", mesh_mod.make_mesh(1))]
+    # one launch per device that has volumes
+    expected = sum(min(len(vols), 1 if m is None else m.devices.size)
+                   for _, m in meshes)
+    wall_ms = {}
+    counts.start()
+    for name, mesh in meshes:
+        t0 = time.monotonic()
+        got = streaming.batch_encode_volumes(vols, mesh=mesh)
+        wall_ms[name] = (time.monotonic() - t0) * 1e3
+        if not np.array_equal(got, want):
+            raise AssertionError(f"batch_encode_volumes ({name}) differs "
+                                 "from CpuCoderMT")
+    enc = counts.read("batch_encode_volumes", "gf_apply_batch", expected)
+    # staging alone: the batch copied into a pinned buffer (warm)
+    pinned = torch.empty(vols.shape, dtype=torch.uint8, pin_memory=True)
+    np.copyto(pinned.numpy(), vols)
+    t0 = time.monotonic()
+    np.copyto(pinned.numpy(), vols)
+    stage_ms = (time.monotonic() - t0) * 1e3
+    del pinned
+
+    data = vols[0]
+    full = np.concatenate([data, want[0]])
+    one_card = meshes[2][1]
+    drops = ((0, 3, 7, 9), (10, 11, 12, 13), (0, 5, 11, 13))
+    counts.start()
+    for drop in drops:
+        out = distributed.distributed_rebuild(
+            DEFAULT_SCHEME, one_card,
+            {i: full[i] for i in range(14) if i not in drop}, drop)
+        if not np.array_equal(out, full[list(drop)]):
+            raise AssertionError(f"distributed_rebuild of {drop} differs")
+    reb = counts.read("distributed_rebuild", "gf_apply", len(drops))
+    warm = wall_ms["batch_mesh()"]
+    emit("batch_encode_volumes", shape=list(BATCH_ENCODE_SHAPE),
+         meshes=[name for name, _ in meshes], parity_equal_to_cpu_mt=True,
+         launches=enc, wall_ms=wall_ms, kernel_ms=kernel_ms,
+         stage_into_pinned_ms=stage_ms,
+         host_copy_share_of_encode_batch=1 - kernel_ms / warm,
+         distributed_rebuild={"drops": [list(d) for d in drops],
+                              "n": 1 << 20, "equal": True,
+                              "launches": reb})
+
+
 def kernel_entry(name: str, source: str, replaces: str, counts: PathCounts,
                  worst: int, row: dict, timing: list[dict]) -> dict:
     launches = counts.total(name)
@@ -742,6 +1278,30 @@ def kernel_entry(name: str, source: str, replaces: str, counts: PathCounts,
     return entry
 
 
+def batch_kernel_entry(counts: PathCounts, worst: int,
+                       rows: list[dict]) -> dict:
+    """K1's batch entry in the kernels line, at its encode shape."""
+    launches = counts.total("gf_apply_batch")
+    if launches == 0:
+        raise AssertionError("no path launched gf_apply_batch")
+    row = rows[0]
+    return {"name": "gf_apply_batch", "route": "cuda",
+            "source": "seaweedfs_tpu_torch/csrc/gf_apply.cu",
+            "replaces": K1_REPLACES, "counterpart": K1_BATCH_COUNTERPART,
+            "launches": launches,
+            "launches_by_phase": counts.of("gf_apply_batch"),
+            "max_abs_err": worst, "ms": row["gf_apply_batch_ms"],
+            "plain_ms": row["gf_apply_batch_plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "shape": row["shape"],
+            "by_shape": [{"shape": r["shape"], "ms": r["gf_apply_batch_ms"],
+                          "plain_ms": r["gf_apply_batch_plain_ms"],
+                          "singles_ms": r["singles_ms"],
+                          "bound_ms": r["bound_ms"],
+                          "copy_floor_ms": r["copy_floor_ms"]}
+                         for r in rows]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--volume-mb", type=int, default=1024,
@@ -749,8 +1309,16 @@ def main() -> int:
     ap.add_argument("--alt-volume-mb", type=int, default=256,
                     help="MiB of needle payload in each RS(6,3) / RS(12,6) "
                          "volume (default 256)")
+    ap.add_argument("--batch-volumes", type=int, default=64,
+                    help="volumes encoded at once through the batch "
+                         "scheduler (default 64, BASELINE config 4)")
+    ap.add_argument("--batch-volume-mb", type=int, default=32,
+                    help="MiB of needle payload in each of them "
+                         "(default 32)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    if args.batch_volumes < len(BATCH_LOSSES):
+        ap.error(f"--batch-volumes must be at least {len(BATCH_LOSSES)}")
 
     import torch
     if not torch.cuda.is_available():
@@ -764,30 +1332,45 @@ def main() -> int:
     phase_build()
     worst_gf = phase_kernel(args.seed)
     worst_mxu = phase_kernel_mxu(args.seed)
+    worst_batch = phase_kernel_batch(args.seed)
     timing = phase_timing(args.seed)
+    timing_batch = phase_timing_batch(args.seed)
 
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "chip_smoke_work")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     counts = PathCounts()
+    # the batch path's own counts, so K1's single entry keeps the count of
+    # the volume paths above
+    batch_counts = PathCounts()
     try:
         main_path(work, args.volume_mb, args.seed, counts)
         for k, m in ALT_SCHEMES:
             alt_scheme(work, k, m, args.alt_volume_mb, args.seed, counts)
+        batch_volumes(work, args.batch_volumes, args.batch_volume_mb,
+                      args.seed, batch_counts)
+        batch_encode_phase(args.seed, batch_counts,
+                           timing_batch[0]["gf_apply_batch_ms"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    emit("memory", max_memory_allocated=torch.cuda.max_memory_allocated(0),
+         nvidia_smi=smi)
 
     # K1's headline shape is the RS(10,4) rebuild batch, K2's the RS(10,4)
     # encode batch: the shape each runs on the main path
     rows = {r["shape"]: r for r in timing}
+    k1 = kernel_entry("gf_apply", "seaweedfs_tpu_torch/csrc/gf_apply.cu",
+                      K1_REPLACES, counts, worst_gf,
+                      rows["rebuild 10x16MiB->4 (pipeline batch)"], timing)
+    k1["launches_batch_paths"] = {p: c for p, c in
+                                  batch_counts.of("gf_apply").items() if c}
     print(json.dumps({"kernels": [
-        kernel_entry("gf_apply", "seaweedfs_tpu_torch/csrc/gf_apply.cu",
-                     K1_REPLACES, counts, worst_gf,
-                     rows["rebuild 10x16MiB->4 (pipeline batch)"], timing),
+        k1,
         kernel_entry("mxu_apply", "seaweedfs_tpu_torch/csrc/mxu_apply.cu",
                      K2_REPLACES, counts, worst_mxu,
-                     rows["encode 10x1MiB->4 (small-block tier)"], timing)]}))
+                     rows["encode 10x1MiB->4 (small-block tier)"], timing),
+        batch_kernel_entry(batch_counts, worst_batch, timing_batch)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -49,6 +49,30 @@
 // a grid past 2^31 - 1 blocks (the grid-stride loop covers the rest);
 // the row split re-reads inputs, which pays only while they sit in L2,
 // hence its column limit.
+//
+// The batch entry (gf_apply_batch_launch). A batch of B independent jobs,
+// (B, k, n) -> (B, m, n), in one launch whatever B and n are: the jobs of
+// concurrent volume encodes or rebuilds that the EC batch scheduler
+// coalesced. It replaces B launches of the single entry, so the fixed cost
+// of a launch is paid once per batch, not once per job. The same column
+// body runs per job; blockIdx.z picks the job. The grid's y and z extents
+// are at most 65535 each: y is the row split (at most kMaxRows), z is
+// min(B, 65535), and a job-stride loop over blockIdx.z takes jobs past it,
+// so any B fits. Jobs and rows may have any stride (16-byte aligned ones
+// take the vector path).
+// Matrices. An encode batch shares one matrix: its masks go by value in
+// the parameter space, as above. A rebuild batch has one matrix per job,
+// m * 8 words each: 512 bytes a job for m = 16, 32 KiB at B = 64, beyond
+// the 4 KiB parameter space. Those masks live in device memory, (B, m*8)
+// words, which the wrapper uploads on the launch stream from pinned host
+// memory without synchronising with the card; a job with fewer rows than
+// m has zero masks in the rest, which give zero rows. Each block copies
+// its job's masks into shared memory before the Horner chain (and the
+// shared matrix's too, so both read masks one way); the branches on them
+// stay uniform per block.
+// What bounds a batched launch: bytes, B * (k + m) * n of HBM traffic,
+// with the single entry's per-byte instruction cost; the launch's fixed
+// cost is now one per batch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,6 +82,7 @@ namespace {
 constexpr int kMaxRows = 16;   // m: outputs per launch
 constexpr int kMaxCols = 32;   // k: inputs per launch (one 32-bit mask)
 constexpr int kThreads = 128;  // rs_cuda.THREADS
+constexpr int kMaxGridZ = 65535;  // the card's limit on gridDim.z (and y)
 
 struct Selection {
     uint32_t mask[kMaxRows * 8];  // mask[i * 8 + b]: inputs j with bit b of M[i][j]
@@ -120,17 +145,18 @@ __device__ __forceinline__ void store_partial(uint8_t* p, const uint4& v,
     }
 }
 
-// MAXK: register slots for inputs; EXACT: k == MAXK (every `j < k` folds
-// away); CHUNKS: 16-byte pieces per thread per grid-stride step. Block y
-// computes output rows [y * rows, y * rows + rows).
+// The column loop of one job: output rows [i0, i1) of mask (m * 8 words,
+// mask[i * 8 + b] as in Selection) applied to data's k rows over n
+// columns, a grid-stride loop over blockIdx.x. MAXK: register slots for
+// inputs; EXACT: k == MAXK (every `j < k` folds away); CHUNKS: 16-byte
+// pieces per thread per grid-stride step.
 template <int MAXK, bool EXACT, int CHUNKS>
-__global__ void __launch_bounds__(kThreads)
-gf_apply_kernel(const Selection sel, int m, int k_arg, int rows,
-                const Args a) {
+__device__ __forceinline__ void apply_columns(
+        const uint32_t* mask, int k_arg, int i0, int i1, const uint8_t* data,
+        int64_t data_stride, uint8_t* out, int64_t out_stride, int64_t n,
+        int vec) {
     const int k = EXACT ? MAXK : k_arg;
-    const int i0 = blockIdx.y * rows;
-    const int i1 = min(m, i0 + rows);
-    const int64_t chunks = (a.n + 15) >> 4;
+    const int64_t chunks = (n + 15) >> 4;
     const int64_t tile = (int64_t)kThreads * CHUNKS;
     for (int64_t t0 = (int64_t)blockIdx.x * tile; t0 < chunks;
          t0 += (int64_t)gridDim.x * tile) {
@@ -142,13 +168,13 @@ gf_apply_kernel(const Selection sel, int m, int k_arg, int rows,
         for (int u = 0; u < CHUNKS; u++) {
             const int64_t c = t0 + u * kThreads + threadIdx.x;
             col[u] = c << 4;
-            len[u] = c < chunks ? (int)min((int64_t)16, a.n - col[u]) : 0;
-            full[u] = a.vec && len[u] == 16;
+            len[u] = c < chunks ? (int)min((int64_t)16, n - col[u]) : 0;
+            full[u] = vec && len[u] == 16;
 #pragma unroll
             for (int j = 0; j < MAXK; j++) {
                 d[u][j] = make_uint4(0, 0, 0, 0);
                 if (j < k && len[u] > 0) {
-                    const uint8_t* p = a.data + (int64_t)j * a.data_stride + col[u];
+                    const uint8_t* p = data + (int64_t)j * data_stride + col[u];
                     d[u][j] = full[u] ? __ldg(reinterpret_cast<const uint4*>(p))
                                       : load_partial(p, len[u]);
                 }
@@ -162,10 +188,10 @@ gf_apply_kernel(const Selection sel, int m, int k_arg, int rows,
             for (int b = 7; b >= 0; b--) {
 #pragma unroll
                 for (int u = 0; u < CHUNKS; u++) acc[u] = xtime4(acc[u]);
-                const uint32_t mask = sel.mask[i * 8 + b];
+                const uint32_t sel = mask[i * 8 + b];
 #pragma unroll
                 for (int j = 0; j < MAXK; j++) {
-                    if (j < k && ((mask >> j) & 1u)) {
+                    if (j < k && ((sel >> j) & 1u)) {
 #pragma unroll
                         for (int u = 0; u < CHUNKS; u++) xor4(acc[u], d[u][j]);
                     }
@@ -173,7 +199,7 @@ gf_apply_kernel(const Selection sel, int m, int k_arg, int rows,
             }
 #pragma unroll
             for (int u = 0; u < CHUNKS; u++) {
-                uint8_t* q = a.out + (int64_t)i * a.out_stride + col[u];
+                uint8_t* q = out + (int64_t)i * out_stride + col[u];
                 if (full[u]) {
                     *reinterpret_cast<uint4*>(q) = acc[u];
                 } else if (len[u] > 0) {
@@ -184,12 +210,104 @@ gf_apply_kernel(const Selection sel, int m, int k_arg, int rows,
     }
 }
 
+// The single entry: block y computes output rows [y * rows, y * rows + rows).
 template <int MAXK, bool EXACT, int CHUNKS>
-void launch(const Selection& sel, int m, int k, const Args& a, int rows,
-            int grid, cudaStream_t s) {
-    const dim3 blocks(grid, (m + rows - 1) / rows);
-    gf_apply_kernel<MAXK, EXACT, CHUNKS><<<blocks, kThreads, 0, s>>>(
-        sel, m, k, rows, a);
+__global__ void __launch_bounds__(kThreads)
+gf_apply_kernel(const __grid_constant__ Selection sel, int m, int k, int rows,
+                const Args a) {
+    const int i0 = blockIdx.y * rows;
+    apply_columns<MAXK, EXACT, CHUNKS>(sel.mask, k, i0, min(m, i0 + rows),
+                                       a.data, a.data_stride, a.out,
+                                       a.out_stride, a.n, a.vec);
+}
+
+struct Batch {
+    const uint32_t* job_masks;  // device (batch, m * 8) words, or null
+    int batch;
+    int64_t job_stride;         // bytes between jobs' first input rows
+    int64_t out_job_stride;     // bytes between jobs' first output rows
+};
+
+// The batch entry: block (x, y, z) runs apply_columns for jobs z,
+// z + gridDim.z, ... with its job's masks in shared memory.
+template <int MAXK, bool EXACT, int CHUNKS>
+__global__ void __launch_bounds__(kThreads)
+gf_apply_batch_kernel(const __grid_constant__ Selection sel, int m, int k,
+                      int rows, const Args a, const Batch bt) {
+    __shared__ uint32_t mask[kMaxRows * 8];
+    const int i0 = blockIdx.y * rows;
+    const int i1 = min(m, i0 + rows);
+    if (bt.job_masks == nullptr) {
+        for (int t = threadIdx.x; t < m * 8; t += kThreads) mask[t] = sel.mask[t];
+        __syncthreads();
+    }
+    for (int job = blockIdx.z; job < bt.batch; job += gridDim.z) {
+        if (bt.job_masks != nullptr) {
+            __syncthreads();  // every thread is done with the last job's masks
+            const uint32_t* src = bt.job_masks + (int64_t)job * m * 8;
+            for (int t = threadIdx.x; t < m * 8; t += kThreads) mask[t] = src[t];
+            __syncthreads();
+        }
+        apply_columns<MAXK, EXACT, CHUNKS>(
+            mask, k, i0, i1, a.data + job * bt.job_stride, a.data_stride,
+            a.out + job * bt.out_job_stride, a.out_stride, a.n, a.vec);
+    }
+}
+
+struct SingleLaunch {
+    const Selection& sel;
+    int m, k;
+    const Args& a;
+    int rows, grid;
+    cudaStream_t s;
+    template <int MAXK, bool EXACT, int CHUNKS>
+    void run() const {
+        const dim3 blocks(grid, (m + rows - 1) / rows);
+        gf_apply_kernel<MAXK, EXACT, CHUNKS><<<blocks, kThreads, 0, s>>>(
+            sel, m, k, rows, a);
+    }
+};
+
+struct BatchLaunch {
+    const Selection& sel;
+    int m, k;
+    const Args& a;
+    const Batch& bt;
+    int rows, grid, grid_z;
+    cudaStream_t s;
+    template <int MAXK, bool EXACT, int CHUNKS>
+    void run() const {
+        const dim3 blocks(grid, (m + rows - 1) / rows, grid_z);
+        gf_apply_batch_kernel<MAXK, EXACT, CHUNKS><<<blocks, kThreads, 0, s>>>(
+            sel, m, k, rows, a, bt);
+    }
+};
+
+// Runs l.run<MAXK, EXACT, CHUNKS>() for the instantiation that serves k:
+// k exact for k <= 16 with two pieces per thread, else the generic one
+// with one piece (two would spill at 32 inputs).
+template <typename L>
+void dispatch_k(int k, const L& l) {
+    switch (k) {
+#define GF_EXACT_CASE(K)                        \
+    case K:                                     \
+        l.template run<K, true, 2>();           \
+        break;
+        GF_EXACT_CASE(1) GF_EXACT_CASE(2) GF_EXACT_CASE(3) GF_EXACT_CASE(4)
+        GF_EXACT_CASE(5) GF_EXACT_CASE(6) GF_EXACT_CASE(7) GF_EXACT_CASE(8)
+        GF_EXACT_CASE(9) GF_EXACT_CASE(10) GF_EXACT_CASE(11) GF_EXACT_CASE(12)
+        GF_EXACT_CASE(13) GF_EXACT_CASE(14) GF_EXACT_CASE(15) GF_EXACT_CASE(16)
+#undef GF_EXACT_CASE
+        default:
+            l.template run<kMaxCols, false, 1>();
+    }
+}
+
+Selection host_selection(const uint32_t* masks, int m) {
+    Selection sel;
+    for (int t = 0; t < kMaxRows * 8; t++)
+        sel.mask[t] = masks != nullptr && t < m * 8 ? masks[t] : 0u;
+    return sel;
 }
 
 }  // namespace
@@ -208,24 +326,43 @@ int gf_apply_launch(const uint32_t* masks, int m, int k, const void* data,
     if (m < 1 || m > kMaxRows || k < 1 || k > kMaxCols || n < 0 ||
         rows < 1 || grid < 1)
         return (int)cudaErrorInvalidValue;
-    Selection sel;
-    for (int t = 0; t < kMaxRows * 8; t++) sel.mask[t] = t < m * 8 ? masks[t] : 0u;
+    const Selection sel = host_selection(masks, m);
     const Args a{static_cast<const uint8_t*>(data), data_stride,
                  static_cast<uint8_t*>(out), out_stride, n, vec};
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (k) {
-#define GF_EXACT_CASE(K)                                      \
-    case K:                                                   \
-        launch<K, true, 2>(sel, m, K, a, rows, grid, s);      \
-        break;
-        GF_EXACT_CASE(1) GF_EXACT_CASE(2) GF_EXACT_CASE(3) GF_EXACT_CASE(4)
-        GF_EXACT_CASE(5) GF_EXACT_CASE(6) GF_EXACT_CASE(7) GF_EXACT_CASE(8)
-        GF_EXACT_CASE(9) GF_EXACT_CASE(10) GF_EXACT_CASE(11) GF_EXACT_CASE(12)
-        GF_EXACT_CASE(13) GF_EXACT_CASE(14) GF_EXACT_CASE(15) GF_EXACT_CASE(16)
-#undef GF_EXACT_CASE
-        default:  // two pieces per thread would spill at 32 inputs
-            launch<kMaxCols, false, 1>(sel, m, k, a, rows, grid, s);
-    }
+    dispatch_k(k, SingleLaunch{sel, m, k, a, rows, grid,
+                               static_cast<cudaStream_t>(stream)});
+    return (int)cudaGetLastError();
+}
+
+// The batch entry, one launch for `batch` jobs: job b reads k rows at
+// data + b * job_stride (rows row_stride apart) and writes m rows at
+// out + b * out_job_stride (rows out_row_stride apart).
+// per_job = 0: masks is a host array of m * 8 words shared by every job,
+// passed by value as in gf_apply_launch. per_job = 1: masks is a device
+// array of batch * m * 8 words, job b's at masks + b * m * 8, already
+// enqueued on `stream` (the kernel reads it there).
+// vec: 1 when data, out, both row strides and both job strides are
+// 16-byte aligned. rows, grid, grid_z: rs_cuda.batch_launch_shape's
+// choice; grid_z <= 65535 (the card's limit on gridDim.z), and jobs past
+// it are taken by the kernel's job-stride loop.
+// Launches on `stream` without synchronising; returns cudaGetLastError().
+int gf_apply_batch_launch(const uint32_t* masks, int per_job, int m, int k,
+                          int batch, const void* data, int64_t job_stride,
+                          int64_t row_stride, void* out,
+                          int64_t out_job_stride, int64_t out_row_stride,
+                          int64_t n, int vec, int rows, int grid,
+                          int grid_z, void* stream) {
+    if (m < 1 || m > kMaxRows || k < 1 || k > kMaxCols || n < 0 ||
+        batch < 1 || rows < 1 || grid < 1 || grid_z < 1 ||
+        grid_z > kMaxGridZ || masks == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const Selection sel = host_selection(per_job ? nullptr : masks, m);
+    const Args a{static_cast<const uint8_t*>(data), row_stride,
+                 static_cast<uint8_t*>(out), out_row_stride, n, vec};
+    const Batch bt{per_job ? masks : nullptr, batch, job_stride,
+                   out_job_stride};
+    dispatch_k(k, BatchLaunch{sel, m, k, a, bt, rows, grid, grid_z,
+                              static_cast<cudaStream_t>(stream)});
     return (int)cudaGetLastError();
 }
 

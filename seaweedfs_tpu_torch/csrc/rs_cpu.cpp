@@ -1,0 +1,515 @@
+// Native CPU GF(2^8) Reed-Solomon kernel: the host coder of the port, a
+// copy of seaweedfs_tpu/native/rs_cpu.cpp.
+//
+// Fills the role the SIMD assembly in klauspost/reedsolomon fills for the
+// reference (go.mod:61): a fast CPU codec behind the ErasureCoder's CPU
+// path (ops/rs_cpu.py), the batch scheduler's fallback and the
+// independent host check of the card's shards.
+// Three tiers, picked at runtime:
+//
+//   1. GFNI  — vgf2p8affineqb on 512-bit EVEX vectors: multiplication by a
+//      constant c in GF(2^8)/0x11D is an 8x8 bit-matrix applied per byte,
+//      64 bytes per instruction. This is the same technique current
+//      klauspost/reedsolomon uses on GFNI-capable cores.
+//   2. AVX2  — the split-nibble PSHUFB method klauspost v1.10 (the version
+//      the reference pins, go.mod:61) uses on AVX2 cores: per constant two
+//      16-entry tables (c*lo_nibble, c*hi_nibble), two shuffles + xor per
+//      32-byte lane (same method as its galois_amd64 codegen).
+//   3. SWAR  — portable fallback: shared doubling chains over 8 packed
+//      bytes in a uint64 (~6 scalar ops/byte, autovectorizable).
+//
+// The dispatcher self-tests each SIMD tier against the SWAR path on first
+// use and falls back on mismatch, so a wrong affine-matrix bit order can
+// never corrupt data. gf_force_impl()/gf_impl_name() let benchmarks pin
+// and report a tier explicitly.
+//
+// Exposed via ctypes (see native/rs_native.py); no pybind11 dependency.
+
+#include <atomic>
+#include <cstdint>
+#include <cstring>
+#include <mutex>
+
+#if defined(__x86_64__) || defined(_M_X64)
+#define RS_X86 1
+#include <immintrin.h>
+#endif
+
+typedef uint64_t word;
+
+// ---------------------------------------------------------------- GF tables
+
+static uint8_t gf_exp[512];
+static uint8_t gf_log[256];
+static uint8_t gf_mul_tab[256][256];
+static std::once_flag gf_init_flag;
+
+static void gf_init_impl() {
+    uint16_t x = 1;
+    for (int i = 0; i < 255; i++) {
+        gf_exp[i] = (uint8_t)x;
+        gf_log[(uint8_t)x] = (uint8_t)i;
+        x <<= 1;
+        if (x & 0x100) x ^= 0x11D;
+    }
+    for (int i = 255; i < 512; i++) gf_exp[i] = gf_exp[i - 255];
+    for (int a = 0; a < 256; a++) {
+        gf_mul_tab[0][a] = gf_mul_tab[a][0] = 0;
+        for (int b = 1; b <= a; b++) {
+            uint8_t p = (a == 0 || b == 0)
+                ? 0 : gf_exp[gf_log[a] + gf_log[b]];
+            gf_mul_tab[a][b] = p;
+            gf_mul_tab[b][a] = p;
+        }
+    }
+}
+
+static void gf_init() {
+    // gf_apply may be entered concurrently (ctypes releases the GIL);
+    // call_once fences the table stores against the done flag
+    std::call_once(gf_init_flag, gf_init_impl);
+}
+
+static inline uint8_t gf_mul1(uint8_t a, uint8_t b) {
+    if (!a || !b) return 0;
+    return gf_exp[gf_log[a] + gf_log[b]];
+}
+
+// ------------------------------------------------------------- scalar/SWAR
+
+static inline word x2(word v) {
+    // multiply each of the 8 packed bytes by 2 in GF(2^8)/0x11D
+    word hi = v & 0x8080808080808080ULL;
+    word lo = (v & 0x7f7f7f7f7f7f7f7fULL) << 1;
+    return lo ^ ((hi >> 7) * 0x1D);
+}
+
+// All internal kernels take the row pitch (`stride`, bytes between the
+// starts of consecutive shard rows) separately from the byte count to
+// process (`n`). gf_apply passes stride == n; gf_apply_strided points the
+// bases at a column offset inside wider matrices so worker threads can
+// shard one row batch by column range with zero copies.
+
+// table-driven tail for bytes [from, n) that the vector strides didn't cover
+static void gf_tail(const uint8_t* mat, int64_t m, int64_t k,
+                    const uint8_t* data, uint8_t* out, int64_t stride,
+                    int64_t n, int64_t from) {
+    gf_init();
+    for (int64_t t = from; t < n; t++) {
+        for (int64_t i = 0; i < m; i++) {
+            uint8_t acc = out[i * stride + t];
+            for (int64_t j = 0; j < k; j++)
+                acc ^= gf_mul_tab[mat[i * k + j]][data[j * stride + t]];
+            out[i * stride + t] = acc;
+        }
+    }
+}
+
+static void gf_apply_scalar(const uint8_t* mat, int64_t m, int64_t k,
+                            const uint8_t* data, uint8_t* out,
+                            int64_t stride, int64_t n) {
+    // the doubling-chain tables assume m <= 64 (uint64 row bitmask) and
+    // k <= 256; anything bigger runs the unbounded table path
+    if (m > 64 || k > 256) {
+        gf_tail(mat, m, k, data, out, stride, n, 0);
+        return;
+    }
+    // word loads require 8-aligned row starts; a misaligned column offset
+    // (never produced by the Python sharder, which aligns to 64) degrades
+    // to the byte-table path rather than faulting on strict platforms
+    if (((uintptr_t)data | (uintptr_t)out | (uint64_t)stride) & 7) {
+        gf_tail(mat, m, k, data, out, stride, n, 0);
+        return;
+    }
+    const int64_t nw = n / 8;
+    // per (j, bit): bitmask over i of parities that need this doubled
+    // version (m <= 64)
+    uint64_t need[256][8];
+    for (int64_t j = 0; j < k; j++) {
+        for (int b = 0; b < 8; b++) {
+            uint64_t mask = 0;
+            for (int64_t i = 0; i < m; i++) {
+                if ((mat[i * k + j] >> b) & 1) mask |= (1ULL << i);
+            }
+            need[j][b] = mask;
+        }
+    }
+    for (int64_t j = 0; j < k; j++) {
+        const word* src = reinterpret_cast<const word*>(data + j * stride);
+        for (int64_t w = 0; w < nw; w++) {
+            word d = src[w];
+            for (int b = 0; b < 8; b++) {
+                uint64_t mask = need[j][b];
+                while (mask) {
+                    int i = __builtin_ctzll(mask);
+                    mask &= mask - 1;
+                    reinterpret_cast<word*>(out + i * stride)[w] ^= d;
+                }
+                d = x2(d);
+            }
+        }
+    }
+    // byte tail (n not multiple of 8)
+    gf_tail(mat, m, k, data, out, stride, n, nw * 8);
+}
+
+#ifdef RS_X86
+// ------------------------------------------------- AVX2 split-nibble PSHUFB
+
+// Per matrix constant c: 16-byte tables of c*v for v in 0..15 (low nibble)
+// and c*(v<<4) (high nibble). A product is tbl_lo[d&15] ^ tbl_hi[d>>4].
+static void make_nibble_tables(uint8_t c, uint8_t lo[16], uint8_t hi[16]) {
+    for (int v = 0; v < 16; v++) {
+        lo[v] = gf_mul_tab[c][v];
+        hi[v] = gf_mul_tab[c][v << 4];
+    }
+}
+
+__attribute__((target("avx2")))
+static void gf_apply_avx2(const uint8_t* mat, int64_t m, int64_t k,
+                          const uint8_t* data, uint8_t* out,
+                          int64_t stride, int64_t n) {
+    gf_init();
+    // heap-allocated tables, 64B per matrix entry (typical RS use is
+    // m*k = 4*10); the scalar path handles anything bigger than 1024
+    // entries where table setup would dominate
+    if (m * k > 1024) {
+        gf_apply_scalar(mat, m, k, data, out, stride, n);
+        return;
+    }
+    __m256i* tlo = (__m256i*)_mm_malloc(m * k * sizeof(__m256i), 32);
+    __m256i* thi = (__m256i*)_mm_malloc(m * k * sizeof(__m256i), 32);
+    for (int64_t e = 0; e < m * k; e++) {
+        uint8_t lo[16], hi[16];
+        make_nibble_tables(mat[e], lo, hi);
+        __m128i l = _mm_loadu_si128((const __m128i*)lo);
+        __m128i h = _mm_loadu_si128((const __m128i*)hi);
+        tlo[e] = _mm256_broadcastsi128_si256(l);
+        thi[e] = _mm256_broadcastsi128_si256(h);
+    }
+    const __m256i mask0f = _mm256_set1_epi8(0x0f);
+    int64_t pos = 0;
+    for (; pos + 64 <= n; pos += 64) {
+        for (int64_t i = 0; i < m; i++) {
+            uint8_t* o = out + i * stride + pos;
+            __m256i acc0 = _mm256_loadu_si256((const __m256i*)o);
+            __m256i acc1 = _mm256_loadu_si256((const __m256i*)(o + 32));
+            const __m256i* te_lo = tlo + i * k;
+            const __m256i* te_hi = thi + i * k;
+            for (int64_t j = 0; j < k; j++) {
+                const uint8_t* s = data + j * stride + pos;
+                __m256i d0 = _mm256_loadu_si256((const __m256i*)s);
+                __m256i d1 = _mm256_loadu_si256((const __m256i*)(s + 32));
+                __m256i lo0 = _mm256_and_si256(d0, mask0f);
+                __m256i hi0 = _mm256_and_si256(
+                    _mm256_srli_epi64(d0, 4), mask0f);
+                __m256i lo1 = _mm256_and_si256(d1, mask0f);
+                __m256i hi1 = _mm256_and_si256(
+                    _mm256_srli_epi64(d1, 4), mask0f);
+                acc0 = _mm256_xor_si256(acc0, _mm256_xor_si256(
+                    _mm256_shuffle_epi8(te_lo[j], lo0),
+                    _mm256_shuffle_epi8(te_hi[j], hi0)));
+                acc1 = _mm256_xor_si256(acc1, _mm256_xor_si256(
+                    _mm256_shuffle_epi8(te_lo[j], lo1),
+                    _mm256_shuffle_epi8(te_hi[j], hi1)));
+            }
+            _mm256_storeu_si256((__m256i*)o, acc0);
+            _mm256_storeu_si256((__m256i*)(o + 32), acc1);
+        }
+    }
+    _mm_free(tlo);
+    _mm_free(thi);
+    gf_tail(mat, m, k, data, out, stride, n, pos);
+}
+
+#if defined(__clang__) || (defined(__GNUC__) && __GNUC__ >= 10)
+#define RS_HAVE_GFNI 1
+#endif
+
+#ifdef RS_HAVE_GFNI
+// ------------------------------------------------------- GFNI affine path
+
+// 8x8 bit-matrix A_c with A_c . x = c*x over GF(2^8)/0x11D, in the layout
+// vgf2p8affineqb expects: the row computing result bit r lives in byte
+// (7-r) of the qword, and within a row byte, input bit i is selected by
+// bit i (verified empirically: flipping the column index bit-reverses
+// every byte). Column i of the matrix is the byte c * 2^i.
+static uint64_t gfni_matrix(uint8_t c) {
+    uint64_t mtx = 0;
+    for (int i = 0; i < 8; i++) {
+        uint8_t col = gf_mul1(c, (uint8_t)(1 << i));
+        for (int r = 0; r < 8; r++) {
+            if ((col >> r) & 1)
+                mtx |= 1ULL << ((7 - r) * 8 + i);
+        }
+    }
+    return mtx;
+}
+
+__attribute__((target("avx512f,avx512bw,gfni")))
+static void gf_apply_gfni(const uint8_t* mat, int64_t m, int64_t k,
+                          const uint8_t* data, uint8_t* out,
+                          int64_t stride, int64_t n) {
+    gf_init();
+    // same >1024-entry guard as the AVX2 tier (matrix setup dominates)
+    if (m * k > 1024) {
+        gf_apply_scalar(mat, m, k, data, out, stride, n);
+        return;
+    }
+    __m512i* mt = (__m512i*)_mm_malloc(m * k * sizeof(__m512i), 64);
+    for (int64_t e = 0; e < m * k; e++)
+        mt[e] = _mm512_set1_epi64((int64_t)gfni_matrix(mat[e]));
+    int64_t pos = 0;
+    for (; pos + 128 <= n; pos += 128) {
+        for (int64_t i = 0; i < m; i++) {
+            uint8_t* o = out + i * stride + pos;
+            __m512i acc0 = _mm512_loadu_si512(o);
+            __m512i acc1 = _mm512_loadu_si512(o + 64);
+            const __m512i* me = mt + i * k;
+            for (int64_t j = 0; j < k; j++) {
+                const uint8_t* s = data + j * stride + pos;
+                __m512i d0 = _mm512_loadu_si512(s);
+                __m512i d1 = _mm512_loadu_si512(s + 64);
+                acc0 = _mm512_xor_si512(
+                    acc0, _mm512_gf2p8affine_epi64_epi8(d0, me[j], 0));
+                acc1 = _mm512_xor_si512(
+                    acc1, _mm512_gf2p8affine_epi64_epi8(d1, me[j], 0));
+            }
+            _mm512_storeu_si512(o, acc0);
+            _mm512_storeu_si512(o + 64, acc1);
+        }
+    }
+    _mm_free(mt);
+    gf_tail(mat, m, k, data, out, stride, n, pos);
+}
+#endif  // RS_HAVE_GFNI
+
+#endif  // RS_X86
+
+// ------------------------------------------------------------- dispatcher
+
+enum GfImpl { GF_AUTO = 0, GF_SCALAR = 1, GF_AVX2 = 2, GF_GFNI = 3 };
+
+static std::mutex g_impl_mu;
+static int g_forced = GF_AUTO;
+static int g_selected = 0;            // resolved tier, 0 = not yet probed
+static std::atomic<int> g_fast{0};    // lock-free mirror for the hot path
+
+typedef void (*gf_fn)(const uint8_t*, int64_t, int64_t,
+                      const uint8_t*, uint8_t*, int64_t, int64_t);
+
+static bool self_test(gf_fn fn) {
+    // 4x10 over 300 bytes — longer than every tier's vector stride (128
+    // for GFNI) so the vector body AND the tail are both exercised
+    enum { N = 300 };
+    uint8_t mat[40], data[10 * N], want[4 * N], got[4 * N];
+    uint32_t seed = 0x9E3779B9u;
+    for (size_t t = 0; t < sizeof(mat); t++) {
+        seed = seed * 1664525u + 1013904223u;
+        mat[t] = (uint8_t)(seed >> 24);
+    }
+    for (size_t t = 0; t < sizeof(data); t++) {
+        seed = seed * 1664525u + 1013904223u;
+        data[t] = (uint8_t)(seed >> 24);
+    }
+    memset(want, 0, sizeof(want));
+    memset(got, 0, sizeof(got));
+    gf_apply_scalar(mat, 4, 10, data, want, N, N);
+    fn(mat, 4, 10, data, got, N, N);
+    if (memcmp(want, got, sizeof(got)) != 0) return false;
+    // strided: columns [64, 64+89) only, full-row pitch — the shape the
+    // multi-core column sharder drives
+    memset(got, 0, sizeof(got));
+    fn(mat, 4, 10, data + 64, got + 64, N, 89);
+    for (int i = 0; i < 4; i++) {
+        if (memcmp(want + i * N + 64, got + i * N + 64, 89) != 0)
+            return false;
+        for (int t = 0; t < N; t++) {
+            if ((t < 64 || t >= 64 + 89) && got[i * N + t] != 0)
+                return false;  // wrote outside its column range
+        }
+    }
+    return true;
+}
+
+// capability + self-test probe for one tier; GF_SCALAR always passes
+static bool tier_usable(int which) {
+    switch (which) {
+#if defined(RS_X86) && defined(RS_HAVE_GFNI)
+        case GF_GFNI:
+            return __builtin_cpu_supports("gfni") &&
+                   __builtin_cpu_supports("avx512bw") &&
+                   self_test(gf_apply_gfni);
+#endif
+#ifdef RS_X86
+        case GF_AVX2:
+            return __builtin_cpu_supports("avx2") &&
+                   self_test(gf_apply_avx2);
+#endif
+        case GF_SCALAR: return true;
+        default: return false;
+    }
+}
+
+static int resolve_impl() {
+    int fast = g_fast.load(std::memory_order_acquire);
+    if (fast) return fast;  // settled — no lock on the hot path
+    std::lock_guard<std::mutex> lk(g_impl_mu);
+    if (g_forced != GF_AUTO) {
+        g_fast.store(g_forced, std::memory_order_release);
+        return g_forced;
+    }
+    if (!g_selected) {
+        gf_init();
+#ifdef RS_X86
+        __builtin_cpu_init();
+#endif
+        if (tier_usable(GF_GFNI)) g_selected = GF_GFNI;
+        else if (tier_usable(GF_AVX2)) g_selected = GF_AVX2;
+        else g_selected = GF_SCALAR;
+    }
+    g_fast.store(g_selected, std::memory_order_release);
+    return g_selected;
+}
+
+extern "C" {
+
+// out[i*n..] ^= sum_j mat[i*k+j] * data[j*n..]   over GF(256)
+// n is the shard length in bytes. out must be zero-initialised by the
+// caller (or hold a partial accumulation).
+void gf_apply(const uint8_t* mat, int64_t m, int64_t k,
+              const uint8_t* data, uint8_t* out, int64_t n) {
+    switch (resolve_impl()) {
+#if defined(RS_X86) && defined(RS_HAVE_GFNI)
+        case GF_GFNI: gf_apply_gfni(mat, m, k, data, out, n, n); break;
+#endif
+#ifdef RS_X86
+        case GF_AVX2: gf_apply_avx2(mat, m, k, data, out, n, n); break;
+#endif
+        default:      gf_apply_scalar(mat, m, k, data, out, n, n); break;
+    }
+}
+
+// Column-sharded variant for multi-threaded callers: process only columns
+// [col0, col0+len) of (k, stride) data into (m, stride) out, reading and
+// writing nothing outside that range. Disjoint column ranges are safe to
+// run concurrently from different threads (ctypes releases the GIL).
+void gf_apply_strided(const uint8_t* mat, int64_t m, int64_t k,
+                      const uint8_t* data, uint8_t* out, int64_t stride,
+                      int64_t col0, int64_t len) {
+    const uint8_t* d = data + col0;
+    uint8_t* o = out + col0;
+    switch (resolve_impl()) {
+#if defined(RS_X86) && defined(RS_HAVE_GFNI)
+        case GF_GFNI: gf_apply_gfni(mat, m, k, d, o, stride, len); break;
+#endif
+#ifdef RS_X86
+        case GF_AVX2: gf_apply_avx2(mat, m, k, d, o, stride, len); break;
+#endif
+        default:      gf_apply_scalar(mat, m, k, d, o, stride, len); break;
+    }
+}
+
+// Force a tier (1=scalar, 2=avx2, 3=gfni, 0=auto). A forced tier must
+// still pass the capability check AND the self-test — a benchmark can
+// never pin a tier that would produce garbage; unusable tiers fall back
+// to auto resolution. Returns the tier that will actually run.
+int gf_force_impl(int which) {
+    gf_init();
+#ifdef RS_X86
+    __builtin_cpu_init();
+#endif
+    {
+        std::lock_guard<std::mutex> lk(g_impl_mu);
+        if (which != GF_AUTO && !tier_usable(which)) which = GF_AUTO;
+        g_forced = which;
+        g_selected = 0;
+        g_fast.store(0, std::memory_order_release);
+    }
+    return resolve_impl();
+}
+
+const char* gf_impl_name() {
+    switch (resolve_impl()) {  // thread-safe: resolve takes the lock
+
+        case GF_GFNI: return "gfni-512";
+        case GF_AVX2: return "avx2-pshufb";
+        default:      return "scalar-swar";
+    }
+}
+
+// ------------------------------------------------------------------ CRC32C
+// Castagnoli, matching Go's hash/crc32 used by the needle checksum
+// (reference weed/storage/needle/crc.go:13). Hardware SSE4.2 crc32q when
+// available, else table-driven slicing-by-8.
+
+static uint32_t crc_tab[8][256];
+static std::once_flag crc_init_flag;
+
+static void crc_init_impl() {
+    const uint32_t poly = 0x82f63b78u;  // reflected 0x1EDC6F41
+    for (int i = 0; i < 256; i++) {
+        uint32_t c = (uint32_t)i;
+        for (int kk = 0; kk < 8; kk++)
+            c = (c & 1) ? (poly ^ (c >> 1)) : (c >> 1);
+        crc_tab[0][i] = c;
+    }
+    for (int i = 0; i < 256; i++) {
+        uint32_t c = crc_tab[0][i];
+        for (int t = 1; t < 8; t++) {
+            c = crc_tab[0][c & 0xff] ^ (c >> 8);
+            crc_tab[t][i] = c;
+        }
+    }
+}
+
+static void crc_init() { std::call_once(crc_init_flag, crc_init_impl); }
+
+#ifdef RS_X86
+__attribute__((target("sse4.2")))
+static uint32_t crc32c_hw(uint32_t crc, const uint8_t* buf, int64_t len) {
+    uint64_t c = ~crc;
+    while (len >= 8 && ((uintptr_t)buf & 7)) {  // align to 8
+        c = _mm_crc32_u8((uint32_t)c, *buf++);
+        len--;
+    }
+    while (len >= 8) {
+        c = _mm_crc32_u64(c, *(const uint64_t*)buf);
+        buf += 8;
+        len -= 8;
+    }
+    while (len-- > 0) c = _mm_crc32_u8((uint32_t)c, *buf++);
+    return ~(uint32_t)c;
+}
+#endif  // RS_X86
+
+static uint32_t crc32c_sw(uint32_t crc, const uint8_t* buf, int64_t len) {
+    crc_init();
+    crc = ~crc;
+    while (len >= 8) {
+        crc ^= (uint32_t)buf[0] | ((uint32_t)buf[1] << 8) |
+               ((uint32_t)buf[2] << 16) | ((uint32_t)buf[3] << 24);
+        uint32_t hi = (uint32_t)buf[4] | ((uint32_t)buf[5] << 8) |
+                      ((uint32_t)buf[6] << 16) | ((uint32_t)buf[7] << 24);
+        crc = crc_tab[7][crc & 0xff] ^ crc_tab[6][(crc >> 8) & 0xff] ^
+              crc_tab[5][(crc >> 16) & 0xff] ^ crc_tab[4][crc >> 24] ^
+              crc_tab[3][hi & 0xff] ^ crc_tab[2][(hi >> 8) & 0xff] ^
+              crc_tab[1][(hi >> 16) & 0xff] ^ crc_tab[0][hi >> 24];
+        buf += 8;
+        len -= 8;
+    }
+    while (len-- > 0)
+        crc = crc_tab[0][(crc ^ *buf++) & 0xff] ^ (crc >> 8);
+    return ~crc;
+}
+
+uint32_t crc32c(uint32_t crc, const uint8_t* buf, int64_t len) {
+#ifdef RS_X86
+    __builtin_cpu_init();
+    if (__builtin_cpu_supports("sse4.2"))
+        return crc32c_hw(crc, buf, len);
+#endif
+    return crc32c_sw(crc, buf, len);
+}
+
+}  // extern "C"

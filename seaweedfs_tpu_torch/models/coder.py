@@ -114,8 +114,20 @@ def scheme_from_dict(d: Optional[dict]) -> RSScheme:
                     int(d.get("parity_shards", 4)))
 
 
+def coder_name_for_scheme(scheme: RSScheme, fallback: str = "cpu-mt") -> str:
+    """The registry name that matches a scheme's code family; `fallback`
+    names the RS coder to use (its -mt suffix carries over to LRC, whose
+    coders are not ported yet)."""
+    if isinstance(scheme, LrcScheme):
+        return "lrc-mt" if fallback.endswith("-mt") else "lrc"
+    return fallback
+
+
 class ErasureCoder(abc.ABC):
-    """Codec over byte buffers. Implementation here: TorchCoder."""
+    """Codec over byte buffers. Implementations here: TorchCoder (the
+    card), MxuCoder (its parity on the tensor cores), CpuCoder (the host),
+    MeshCoder (batches over a mesh of cards) and BatchCoder (the batch
+    scheduler's facade)."""
 
     def __init__(self, scheme: RSScheme = DEFAULT_SCHEME):
         self.scheme = scheme
@@ -138,6 +150,13 @@ class ErasureCoder(abc.ABC):
             for i in range(k, self.scheme.total_shards)
         ]
 
+    def verify(self, shards: Sequence[bytes]) -> bool:
+        """True iff parity shards are consistent with data shards."""
+        redone = self.encode([bytes(s) for s in shards])
+        k = self.scheme.data_shards
+        return all(bytes(redone[i]) == bytes(shards[i])
+                   for i in range(k, self.scheme.total_shards))
+
 
 _REGISTRY: dict[str, type] = {}
 
@@ -149,17 +168,30 @@ def register_coder(name: str):
     return deco
 
 
+# coders of the host: they take no device
+HOST_CODERS = ("cpu", "cpu-mt")
+
+
 def make_coder(name: str = "torch", scheme: RSScheme = DEFAULT_SCHEME,
                device: str = "cuda") -> ErasureCoder:
     """Factory. 'torch' (the default) is the card coder on K1; 'mxu' is
     the same coder with its parity on K2, the tensor-core bit-plane
-    kernel (ops/rs_mxu.py). Both raise when `device` is a CUDA device and
-    none is present, and run the plain PyTorch versions only when the
-    caller passes device='cpu'."""
+    kernel (ops/rs_mxu.py); 'mesh' (ops/rs_mesh.py) codes batches of
+    block-groups over a mesh of cards. These raise when `device` is a CUDA
+    device and none is present, and run the plain PyTorch versions only
+    when the caller passes device='cpu'. 'cpu' and 'cpu-mt'
+    (ops/rs_cpu.py) are the host coder, single- and multi-threaded; they
+    ignore `device`."""
     # import for registration side effects
     from seaweedfs_tpu_torch.ops import rs_torch  # noqa: F401
+    if name in HOST_CODERS:
+        from seaweedfs_tpu_torch.ops import rs_cpu  # noqa: F401
     if name == "mxu":
         from seaweedfs_tpu_torch.ops import rs_mxu  # noqa: F401
+    if name == "mesh":
+        from seaweedfs_tpu_torch.ops import rs_mesh  # noqa: F401
     if name not in _REGISTRY:
         raise KeyError(f"unknown coder {name!r}; known: {sorted(_REGISTRY)}")
+    if name in HOST_CODERS:
+        return _REGISTRY[name](scheme)
     return _REGISTRY[name](scheme, device=device)

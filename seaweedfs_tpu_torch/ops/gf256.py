@@ -84,6 +84,18 @@ def _mul_table() -> np.ndarray:
 MUL_TABLE = _mul_table()
 
 
+@functools.lru_cache(maxsize=None)
+def pair_table(c: int) -> np.ndarray:
+    """65536-entry uint16 table applying c bytewise to a little-endian
+    byte pair: pair_table(c)[b0 | b1<<8] == (c*b0) | (c*b1)<<8. One
+    gather per two bytes: the host coder's numpy path (ops/rs_cpu.py).
+    128 KiB per cached coefficient; an RS(10,4) parity matrix uses <= 40."""
+    row = MUL_TABLE[c].astype(np.uint16)
+    tab = (row[None, :] | (row[:, None] << 8)).reshape(-1)
+    tab.setflags(write=False)
+    return tab
+
+
 def gf_matmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Matrix product over GF(256). a: (m, k) uint8, b: (k, n) uint8 -> (m, n)."""
     a = np.asarray(a, dtype=np.uint8)

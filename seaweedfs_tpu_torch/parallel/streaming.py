@@ -449,3 +449,23 @@ def pipelined_rebuild_files(base_file_name: str,
         _unwind(pl, outs, reraise=False)
         raise
     return missing
+
+
+def batch_encode_volumes(data_batch: np.ndarray,
+                         scheme: RSScheme = DEFAULT_SCHEME,
+                         mesh=None, device="cuda") -> np.ndarray:
+    """Encode B volumes' column batches at once: (B, k, n) uint8 ->
+    (B, m, n) parity (BASELINE config 4: 64 concurrent volumes). With a
+    ('data', 'shard', 'seq') mesh, parallel/distributed.distributed_encode
+    splits it over ('data', 'seq'); with a 1-D 'batch' mesh, MeshCoder
+    splits the volumes over it; without a mesh, it is one launch of K1's
+    batch entry on `device` (a card unless the caller passes
+    device="cpu")."""
+    from seaweedfs_tpu_torch.ops.rs_mesh import MeshCoder
+    from seaweedfs_tpu_torch.parallel import distributed
+    from seaweedfs_tpu_torch.parallel import mesh as mesh_mod
+    if mesh is None:
+        mesh = mesh_mod.batch_mesh(1, device=device)
+    if mesh.axis_names == ("batch",):
+        return MeshCoder(scheme, mesh=mesh).encode_batch(data_batch)
+    return distributed.distributed_encode(scheme, mesh, data_batch)

@@ -149,3 +149,64 @@ def test_pipelines_never_name_a_kernel_module():
     assert not [n for n in names if n.endswith(("rs_cuda", "rs_mxu"))]
     assert "rs_cuda" not in src.read_text()
     assert "rs_mxu" not in src.read_text()
+
+
+def test_mesh_entry_points_raise_without_cuda(no_cuda):
+    """The batch path's entry points run on the card unless asked for the
+    CPU: make_coder("mesh"), MeshCoder(), EcBatchScheduler() (which, unlike
+    the JAX package's, does not quietly take the CPU coder) and
+    batch_encode_volumes raise; device="cpu" runs."""
+    from seaweedfs_tpu_torch.ops.rs_mesh import MeshCoder
+    from seaweedfs_tpu_torch.parallel.batcher import EcBatchScheduler
+    from seaweedfs_tpu_torch.parallel import mesh as mesh_mod
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_coder("mesh")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MeshCoder()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EcBatchScheduler()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        streaming.batch_encode_volumes(np.zeros((2, 10, 16), np.uint8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh_mod.make_mesh()
+    assert mesh_mod.device_count() == 0
+    assert mesh_mod.default_backend() == "cpu"
+    assert make_coder("mesh", device="cpu").n_devices == 1
+    sched = EcBatchScheduler(device="cpu")
+    sched.stop()
+
+
+def test_batch_wrapper_cpu_tensors_take_plain_version_and_do_not_count():
+    rng = np.random.default_rng(2)
+    data = torch.from_numpy(rng.integers(0, 256, (3, 10, 333), np.uint8))
+    mats = [rng.integers(0, 256, (r, 10), np.uint8) for r in (1, 4, 2)]
+    before = (rs_cuda.batch_launches, rs_cuda.launches)
+    got = rs_cuda.gf_apply_batch(mats, data)
+    assert (rs_cuda.batch_launches, rs_cuda.launches) == before
+    assert torch.equal(got, rs_cuda.gf_apply_batch_reference(mats, data))
+    for b, mat in enumerate(mats):  # zero rows pad each job to m = 4
+        r = mat.shape[0]
+        assert torch.equal(got[b, :r],
+                           rs_torch.gf_apply_reference(mat, data[b]))
+        assert not got[b, r:].any()
+    assert rs_cuda._lib is None
+    meta = torch.zeros((2, 10, 16), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        rs_cuda.gf_apply_batch(mats[1], meta)
+
+
+def test_batch_wrapper_checks_inputs():
+    rng = np.random.default_rng(3)
+    mat = rng.integers(0, 256, (4, 10), np.uint8)
+    data = torch.zeros((2, 10, 16), dtype=torch.uint8)
+    strided = torch.zeros((2, 10, 32), dtype=torch.uint8)[:, :, ::2]
+    with pytest.raises(ValueError, match="matrices for a batch"):
+        rs_cuda.gf_apply_batch([mat], data)
+    with pytest.raises(ValueError, match=r"\(B, 10, n\) uint8"):
+        rs_cuda.gf_apply_batch(mat, data[:, :9])
+    with pytest.raises(ValueError, match="contiguous"):
+        rs_cuda.gf_apply_batch(mat, strided)
+    with pytest.raises(ValueError, match="out must be"):
+        rs_cuda.gf_apply_batch(mat, data, data[:, :3])
+    with pytest.raises(ValueError, match="share their column count"):
+        rs_cuda.gf_apply_batch([mat, mat[:, :9]], data)

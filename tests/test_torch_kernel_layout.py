@@ -215,3 +215,34 @@ def test_k1_launch_shape_fits_the_card_and_covers_once(n, m, k):
     assert seen.min() == 1 and seen.max() == 1
     if (1 << 20) <= n < 16 << 20:  # an encode batch fills every SM
         assert grid * -(-m // rows) >= H100_SMS
+
+
+def _job_cover(batch, grid_z):
+    """How often the batch kernel's job-stride loop over blockIdx.z
+    visits each job."""
+    seen = np.zeros(batch, dtype=np.int64)
+    for z in range(grid_z):
+        seen[z::grid_z] += 1
+    return seen
+
+
+@pytest.mark.parametrize("batch", [1, 2, 64, 65535, 65535 + 1])
+@pytest.mark.parametrize("n", [4, 4100, 1 << 20])
+@pytest.mark.parametrize("m,k", [(4, 10), (16, 32)])
+def test_k1_batch_launch_fits_the_card_and_covers_once(batch, n, m, k):
+    """Every (job, 16-byte piece) of a batch is visited exactly once, the
+    grid's y and z extents stay within the card's 65535 (a batch of 65536
+    folds its last job onto block z = 0), and a batch of one launches as
+    the single entry does."""
+    rows, grid, grid_z = rs_cuda.batch_launch_shape(m, k, n, batch)
+    assert 1 <= rows <= m and 1 <= grid <= MAX_GRID_X
+    assert -(-m // rows) <= MAX_GRID_Y and 1 <= grid_z <= MAX_GRID_Y
+    assert grid_z == min(batch, rs_cuda.MAX_GRID_Z)
+    jobs = _job_cover(batch, grid_z)
+    assert jobs.min() == 1 and jobs.max() == 1
+    seen = _cover(n, rs_cuda.THREADS, rs_cuda.pieces_per_thread(k), grid)
+    assert seen.min() == 1 and seen.max() == 1
+    if batch == 1:
+        assert (rows, grid) == rs_cuda.launch_shape(m, k, n)
+    if batch * n >= rs_cuda.SMALL_N_LIMIT:  # a big batch reads inputs once
+        assert rows == m
