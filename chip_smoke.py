@@ -66,6 +66,27 @@ Phases, each printing one JSON line:
                  (64,10,1 MiB) without a mesh, on batch_mesh() and on a
                  one-card ('data', 'shard', 'seq') mesh, against CpuCoderMT;
                  distributed_rebuild on that mesh for three loss patterns
+  15. degraded_reads  the main volume's 10 surviving shards (a hard-linked
+                 copy taken before the rebuild) mounted in a Store with
+                 coder=None, the card coder: every needle read whole
+                 (CRC-checked, byte-equal), one K1 launch per interval of
+                 a lost shard; again with a NeedleCache, cold then warm
+                 (no launch); 64 seeded ranges crossing a lost shard with
+                 ec_needle_meta + read_ec_needle_data_range; wall time and
+                 MB/s per pass, per-interval reconstruct median and p99
+  16. degraded_reads_batched  the same volume read by 32 threads through a
+                 Store whose coder is a BatchCoder over one scheduler: same
+                 bytes, no fallback, a batch-entry launch per mesh batch
+  17. ec_delete  16 needles deleted through the Store: reads refused, also
+                 through the cache; rebuild_ecx_file folds the .ecj into
+                 .ecx tombstones
+  18. lrc_volume  LRC(10,2,2) and RS(10,4) volumes of --alt-volume-mb
+                 encoded at once through one scheduler (launches carrying
+                 both parity matrices), sha256-equal to the host coders;
+                 shard 7 lost: Store reads plan group-local (5 sources) on
+                 the host for LRC and recover on K1 for RS; one block
+                 through the LRC facade (a CPU batch, no fallback); {2,12}
+                 lost and rebuilt on the facade through K1's batch entry
 Then the memory line, the kernel summary line, the `nvidia-smi` line, and
 the result line {"ok": true, "device": {...}} last. Each path phase is
 driven with every kernel entry's launch counter set to 0 just before it
@@ -235,6 +256,10 @@ def check_matrices(seed: int):
             continue
         present = [i for i in range(14) if i not in lost]
         mats.append((f"lose{lost}", plan_rebuild_sources(coder, present, lost)[1]))
+    # what a degraded read of the main volume launches: every lost shard
+    # from the first k survivors (Store -> TorchCoder.reconstruct)
+    present = [i for i in range(14) if i not in LOSS]
+    mats.append(("degraded read", coder.rebuild_matrix(present, LOSS)))
     return mats
 
 
@@ -384,9 +409,11 @@ def batch_matrix_sets(seed: int, B: int):
     (1..16 rows over 32 inputs)."""
     import numpy as np
     rng = np.random.default_rng(seed + B)
+    from seaweedfs_tpu_torch.ops.lrc import LrcCoder
     rs104 = [m for _, m in check_matrices(seed)[1:]]
+    rs104_parity = check_matrices(seed)[0][1]
     alt = alt_matrices(seed)
-    sets = [("RS(10,4) parity", check_matrices(seed)[0][1])]
+    sets = [("RS(10,4) parity", rs104_parity)]
     sets += [(name, mat) for name, mat in alt if "parity" in name]
     sets.append(("random 16x32", rng.integers(0, 256, (16, 32),
                                              dtype=np.uint8)))
@@ -397,6 +424,11 @@ def batch_matrix_sets(seed: int, B: int):
                 if name.startswith(f"RS({k},{m}) lose")]
         sets.append((f"per-job RS({k},{m}) rebuild",
                      [mats[int(i)] for i in rng.integers(0, len(mats), B)]))
+    # the LRC facade's encodes beside RS encodes in one launch
+    lrc_parity = LrcCoder()._parity
+    sets.append(("per-job RS(10,4) / LRC(10,2,2) parity",
+                 [lrc_parity if i % 2 else rs104_parity
+                  for i in range(B)]))
     sets.append(("per-job random up to 16x32",
                  [rng.integers(0, 256, (int(rng.integers(1, 17)), 32),
                                dtype=np.uint8) for _ in range(B)]))
@@ -687,13 +719,19 @@ class PathCounts:
         rs_cuda.batch_launches = 0
         rs_mxu.launches = 0
 
-    def read(self, phase: str, kernel: str, batches: int) -> dict:
-        """Record the phase's counts; the phase must have launched
-        `kernel` once per batch and the other entries never."""
+    @staticmethod
+    def now() -> dict[str, int]:
         from seaweedfs_tpu_torch.ops import rs_cuda, rs_mxu
-        got = {"gf_apply": rs_cuda.launches, "mxu_apply": rs_mxu.launches,
-               "gf_apply_batch": rs_cuda.batch_launches}
-        self.by_phase[phase] = got
+        return {"gf_apply": rs_cuda.launches, "mxu_apply": rs_mxu.launches,
+                "gf_apply_batch": rs_cuda.batch_launches}
+
+    def read(self, phase: str, kernel: str, batches: int) -> dict:
+        """Record the phase's counts (a phase driven in several steps adds
+        them up); the step must have launched `kernel` once per batch and
+        the other entries never."""
+        got = self.now()
+        prev = self.by_phase.get(phase, dict.fromkeys(self.KERNELS, 0))
+        self.by_phase[phase] = {k: prev[k] + got[k] for k in self.KERNELS}
         others = [k for k in self.KERNELS if k != kernel]
         if got[kernel] != batches or batches == 0 or \
                 any(got[o] for o in others):
@@ -770,7 +808,8 @@ def read_back(work: str, vid: int, payloads: dict, total: int) -> None:
         ev.close()
 
 
-def main_path(work: str, volume_mb: int, seed: int, counts: PathCounts) -> None:
+def main_path(work: str, volume_mb: int, seed: int,
+              counts: PathCounts) -> tuple[str, dict]:
     from seaweedfs_tpu_torch.models.coder import DEFAULT_SCHEME, make_coder
     from seaweedfs_tpu_torch.parallel import streaming
     from seaweedfs_tpu_torch.storage.erasure_coding import (decoder,
@@ -831,6 +870,17 @@ def main_path(work: str, volume_mb: int, seed: int, counts: PathCounts) -> None:
     # 9. lose 4 shards, pipelined rebuild on K1
     for i in LOSS:
         os.remove(base + layout.shard_ext(i))
+    # the degraded shard set, for the degraded-read phases: hard links of
+    # the survivors (nothing rewrites them), copies of .ecx (EC deletes
+    # tombstone it in place) and .vif
+    deg = os.path.join(work, "degraded")
+    os.makedirs(deg)
+    for i in range(total):
+        if i not in LOSS:
+            os.link(base + layout.shard_ext(i),
+                    os.path.join(deg, "1" + layout.shard_ext(i)))
+    for ext in (".ecx", ".vif"):
+        shutil.copy(base + ext, os.path.join(deg, "1" + ext))
     stats = {}
     counts.start()
     t0 = time.monotonic()
@@ -861,6 +911,7 @@ def main_path(work: str, volume_mb: int, seed: int, counts: PathCounts) -> None:
     emit("decode", dat_sha256_equal=True, decode_s=decode_s,
          needles_read_back=len(payloads), crc_checked=True,
          read_back_s=time.monotonic() - t0)
+    return deg, payloads
 
 
 def alt_scheme(work: str, k: int, m: int, volume_mb: int, seed: int,
@@ -1257,6 +1308,425 @@ def batch_encode_phase(seed: int, counts: PathCounts,
                               "launches": reb})
 
 
+def _ms_stats(seconds: list[float]) -> dict:
+    ms = sorted(x * 1e3 for x in seconds)
+    if not ms:
+        return {"n": 0}
+    return {"n": len(ms), "median_ms": statistics.median(ms),
+            "p99_ms": ms[min(len(ms) - 1, int(0.99 * len(ms)))],
+            "max_ms": ms[-1]}
+
+
+def _lost_intervals(ev, payloads: dict, lost) -> int:
+    """Intervals of the volume's needles that lie in a lost shard: the
+    reconstructions a read of every needle must make."""
+    from seaweedfs_tpu_torch.storage.erasure_coding import layout
+    n = 0
+    for nid in payloads:
+        for iv in ev.locate_needle(nid)[0]:
+            sid = iv.to_shard_id_and_offset(layout.LARGE_BLOCK_SIZE,
+                                            layout.SMALL_BLOCK_SIZE,
+                                            ev.data_shards)[0]
+            n += sid in lost
+    return n
+
+
+def _read_all(store, vid: int, payloads: dict, threads: int = 1) -> float:
+    """Read every needle of `vid` through store.read_ec_shard_needle
+    (CRC checked) on `threads` threads and check it against its payload;
+    returns the wall seconds."""
+    nids = sorted(payloads)
+
+    def read(part):
+        for nid in part:
+            cookie, data = payloads[nid]
+            n = store.read_ec_shard_needle(vid, nid, cookie)
+            if n.id != nid or n.data != data:
+                raise AssertionError(f"needle {nid:x} of volume {vid} "
+                                     "read back wrong")
+
+    t0 = time.monotonic()
+    if threads == 1:
+        read(nids)
+    else:
+        _run_threads([(read, (nids[i::threads],), {})
+                      for i in range(threads)])
+    return time.monotonic() - t0
+
+
+def degraded_reads(deg: str, payloads: dict, seed: int,
+                   counts: PathCounts):
+    """15. The degraded-read path on the card: a Store over the main
+    volume's 10 surviving shards with coder=None (TorchCoder, K1's single
+    entry). Every needle read whole, with and without the NeedleCache, and
+    64 seeded ranges that cross a lost shard. Returns the store (cache
+    wired) for the EC-delete phase."""
+    import numpy as np
+    from seaweedfs_tpu_torch.ops.rs_torch import TorchCoder
+    from seaweedfs_tpu_torch.storage.erasure_coding import layout
+    from seaweedfs_tpu_torch.storage.needle_cache import NeedleCache
+    from seaweedfs_tpu_torch.storage.store import Store
+    store = Store([deg])
+    if not isinstance(store.coder, TorchCoder) or \
+            store.coder.device.type != "cuda":
+        raise AssertionError(f"Store() took {store.coder}, not the card")
+    store.mount_ec_shards("", 1, [i for i in range(14) if i not in LOSS])
+    ev = store.find_ec_volume(1)
+    expect = _lost_intervals(ev, payloads, LOSS)
+    payload_bytes = sum(len(d) for _, d in payloads.values())
+    took: list[float] = []
+    real = store.coder.reconstruct
+
+    def timed(shards):
+        t0 = time.perf_counter()
+        try:
+            return real(shards)
+        finally:
+            took.append(time.perf_counter() - t0)
+
+    store.coder.reconstruct = timed
+    passes = {}
+
+    def one_pass(name: str, launches: bool, **kw):
+        before = store.ec_recover_stats["generic"]
+        counts.start()
+        wall = _read_all(store, 1, payloads, **kw)
+        recovered = store.ec_recover_stats["generic"] - before
+        if launches:
+            got = counts.read("degraded_reads", "gf_apply", recovered)
+        else:
+            got = counts.now()
+            if any(got.values()) or recovered:
+                raise AssertionError(f"{name}: launches {got}, "
+                                     f"{recovered} recoveries")
+        passes[name] = {"wall_s": wall, "MBps": payload_bytes / wall / 1e6,
+                        "recovered_intervals": recovered, "launches": got}
+        return recovered
+
+    # the plain pass: one K1 launch per interval of a lost shard
+    if one_pass("no_cache", True) != expect:
+        raise AssertionError(f"recovered {passes['no_cache']} intervals, "
+                             f"{expect} lie in lost shards")
+    per_interval = _ms_stats(took)
+    sizes = []  # interval sizes (the kernel's n) of the plain pass
+    for nid in payloads:
+        for iv in ev.locate_needle(nid)[0]:
+            if iv.to_shard_id_and_offset()[0] in LOSS:
+                sizes.append(iv.size)
+    # with the cache: a cold pass decodes each interval once, a warm one
+    # serves every record from memory (no launch)
+    store.needle_cache = NeedleCache(capacity_bytes=4 << 30)
+    if one_pass("cache_cold", True) != expect:
+        raise AssertionError("the cold cache pass recovered "
+                             f"{passes['cache_cold']}, not {expect}")
+    one_pass("cache_warm", False)
+    cache_stats = store.needle_cache.stats()
+    if cache_stats["hits"] < len(payloads):
+        raise AssertionError(f"warm pass: cache {cache_stats}")
+
+    # ranges that cross a lost shard, read without the cache (only the
+    # covering intervals are reconstructed)
+    cache, store.needle_cache = store.needle_cache, None
+    rng = np.random.default_rng(seed + 15)
+    crossing = []
+    for nid in sorted(payloads):
+        for iv in ev.locate_needle(nid)[0]:
+            if iv.to_shard_id_and_offset()[0] in LOSS:
+                crossing.append(nid)
+                break
+    picks = [crossing[int(i)] for i in rng.integers(0, len(crossing), 64)]
+    before = store.ec_recover_stats["generic"]
+    counts.start()
+    t0 = time.monotonic()
+    range_bytes = 0
+    for nid in picks:
+        cookie, data = payloads[nid]
+        meta, size = store.ec_needle_meta(1, nid, cookie)
+        if size != len(data) or meta.cookie != cookie:
+            raise AssertionError(f"needle {nid:x}: meta {size} bytes")
+        lo = int(rng.integers(0, size))
+        ln = int(rng.integers(1, size - lo + 1))
+        got = store.read_ec_needle_data_range(1, nid, lo, ln)
+        if bytes(got) != bytes(data[lo:lo + ln]):
+            raise AssertionError(f"needle {nid:x}: range {lo}+{ln} wrong")
+        range_bytes += ln
+    wall = time.monotonic() - t0
+    recovered = store.ec_recover_stats["generic"] - before
+    if recovered == 0:
+        raise AssertionError("no range read crossed a lost shard")
+    got = counts.read("degraded_reads", "gf_apply", recovered)
+    passes["ranges"] = {"wall_s": wall, "ranges": len(picks),
+                        "range_bytes": range_bytes,
+                        "recovered_intervals": recovered, "launches": got}
+    store.needle_cache = cache
+    store.coder.reconstruct = real
+    emit("degraded_reads", volume="main (RS(10,4))", lost=list(LOSS),
+         needles=len(payloads), payload_bytes=payload_bytes,
+         coder=type(store.coder).__name__, passes=passes,
+         recovered_intervals=expect,
+         launches=counts.by_phase["degraded_reads"],
+         reconstruct_per_interval=per_interval,
+         interval_bytes={"median": statistics.median(sizes),
+                         "min": min(sizes), "max": max(sizes)},
+         cache=cache_stats, bytes_equal=True, crc_checked=True)
+    return store
+
+
+def degraded_reads_batched(deg: str, payloads: dict, counts: PathCounts,
+                           threads: int = 32) -> None:
+    """16. The same degraded volume read by `threads` readers at once
+    through a Store whose coder is a BatchCoder over one EcBatchScheduler
+    (the volume server's -ecBatcher set-up): K1's batch entry, one launch
+    per mesh batch."""
+    from seaweedfs_tpu_torch.ops.rs_mesh import MeshCoder
+    from seaweedfs_tpu_torch.parallel.batcher import (BatchCoder,
+                                                      EcBatchScheduler)
+    from seaweedfs_tpu_torch.storage.store import Store
+    sched = EcBatchScheduler(mesh_coder=MeshCoder(n_devices=1),
+                             window_s=0.005, max_batch=64)
+    try:
+        store = Store([deg], coder=BatchCoder(sched))
+        store.mount_ec_shards("", 1, [i for i in range(14) if i not in LOSS])
+        expect = _lost_intervals(store.find_ec_volume(1), payloads, LOSS)
+        counts.start()
+        wall = _read_all(store, 1, payloads, threads=threads)
+        st = sched.stats()
+        got = counts.read("degraded_reads_batched", "gf_apply_batch",
+                          st["mesh_batches"])
+        store.close()
+    finally:
+        sched.stop()
+    if st["coder_fallbacks"] or st["cpu_batches"] or \
+            st["jobs_total"] != expect or \
+            store.ec_recover_stats["generic"] != expect:
+        raise AssertionError(f"batched degraded reads: {expect} intervals "
+                             f"to recover, stats {st}")
+    payload_bytes = sum(len(d) for _, d in payloads.values())
+    emit("degraded_reads_batched", threads=threads, wall_s=wall,
+         MBps=payload_bytes / wall / 1e6, launches=got,
+         jobs=st["jobs_total"], mesh_batches=st["mesh_batches"],
+         cpu_batches=st["cpu_batches"], fallbacks=st["coder_fallbacks"],
+         max_coalesced=st["max_coalesced"],
+         size_hist=_hist(st["size_hist"]), wait_hist=_hist(st["wait_hist"]),
+         bytes_equal=True, crc_checked=True,
+         note="jobs coalesce only at equal interval sizes")
+
+
+def ec_delete(store, deg: str, payloads: dict, seed: int) -> None:
+    """17. EC deletes through the store (its NeedleCache wired and warm):
+    16 needles tombstoned in .ecx and journalled in .ecj, reads refused
+    through the cache, then rebuild_ecx_file folds the journal in."""
+    import numpy as np
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_volume
+    from seaweedfs_tpu_torch.storage.erasure_coding.encoder import \
+        rebuild_ecx_file
+    from seaweedfs_tpu_torch.storage.volume import DeletedError
+    rng = np.random.default_rng(seed + 17)
+    victims = sorted(int(x) for x in rng.choice(
+        sorted(payloads), min(16, len(payloads)), replace=False))
+    counts = PathCounts()
+    counts.start()
+    t0 = time.monotonic()
+    freed = 0
+    for nid in victims:
+        freed += store.delete_ec_shard_needle(1, nid, payloads[nid][0])
+    for nid in victims:
+        for read in (lambda: store.read_ec_shard_needle(1, nid),
+                     lambda: store.read_ec_needle_data_range(1, nid, 0, 1)):
+            try:
+                read()
+            except DeletedError:
+                continue
+            raise AssertionError(f"deleted needle {nid:x} still reads")
+    launches = counts.now()
+    base = os.path.join(deg, "1")
+    journal = list(ec_volume.iterate_ecj_file(base))
+    if sorted(journal) != victims:
+        raise AssertionError(f".ecj holds {journal}")
+    store.close()
+    rebuild_ecx_file(base)
+    if os.path.exists(base + ".ecj"):
+        raise AssertionError("rebuild_ecx_file left the .ecj")
+    size = os.path.getsize(base + ".ecx")
+    live = 0
+    with open(base + ".ecx", "rb") as ecx:
+        for nid in sorted(payloads):
+            _, nsize = ec_volume.search_needle_from_sorted_index(
+                ecx, size, nid)
+            if (nsize == t.TOMBSTONE_FILE_SIZE) != (nid in victims):
+                raise AssertionError(f"needle {nid:x}: .ecx size {nsize}")
+            live += nsize != t.TOMBSTONE_FILE_SIZE
+    emit("ec_delete", deleted=len(victims), freed_bytes=freed,
+         reads_refused=2 * len(victims), through_cache=True,
+         journal_entries=len(journal), ecx_tombstones=len(victims),
+         ecx_live=live, ecj_removed=True, launches=launches,
+         seconds=time.monotonic() - t0)
+
+
+def lrc_volume(work: str, volume_mb: int, seed: int, counts: PathCounts,
+               batch_counts: PathCounts) -> None:
+    """18. LRC(10,2,2) through the batch path: an LRC volume encoded by
+    pipelined_encode_file through BatchCoder(sched, LrcScheme()) while an
+    RS(10,4) volume encodes through the same scheduler (launches carrying
+    both parity matrices); shards against the host LrcCoderMT and
+    CpuCoderMT; shard 7 lost on both and every needle read through a
+    Store on the card (the LRC volume plans group-local from 5 sources on
+    the host coder, the RS one recovers on K1); one block reconstructed
+    by the facade (5 sources: a CPU batch); {2,12} lost and rebuilt by
+    rebuild_ec_files on the facade (K1's batch entry)."""
+    import numpy as np
+    from seaweedfs_tpu_torch.models.coder import DEFAULT_SCHEME, LrcScheme
+    from seaweedfs_tpu_torch.ops.lrc import LrcCoder, LrcCoderMT
+    from seaweedfs_tpu_torch.ops.rs_cpu import CpuCoderMT
+    from seaweedfs_tpu_torch.ops.rs_mesh import MeshCoder
+    from seaweedfs_tpu_torch.parallel import streaming
+    from seaweedfs_tpu_torch.parallel.batcher import (BatchCoder,
+                                                      EcBatchScheduler)
+    from seaweedfs_tpu_torch.storage.erasure_coding import (ec_volume,
+                                                            encoder, layout)
+    from seaweedfs_tpu_torch.storage.store import Store
+    lrc = LrcScheme()
+    d = os.path.join(work, "lrc")
+    os.makedirs(d)
+    seconds = {}
+    t0 = time.monotonic()
+    vols = {}
+    for vid, scheme in ((21, lrc), (22, DEFAULT_SCHEME)):
+        base, payloads, version = make_volume(d, volume_mb, seed + vid, vid)
+        encoder.write_sorted_ecx(base)
+        ec_volume.write_volume_info(base, version, scheme)
+        vols[vid] = (base, payloads, os.path.getsize(base + ".dat"))
+    seconds["volumes"] = time.monotonic() - t0
+
+    mesh_coder = MeshCoder(n_devices=1)
+    rs_parity, lrc_parity = mesh_coder.parity, LrcCoder()._parity
+    carried = []  # per rebuild_batch launch: (RS parity?, LRC parity?)
+    real_rebuild = mesh_coder.rebuild_batch
+
+    def recorded(src, mats):
+        mats = [np.asarray(m) for m in mats]
+        carried.append((any(np.array_equal(m, rs_parity) for m in mats),
+                        any(np.array_equal(m, lrc_parity) for m in mats)))
+        return real_rebuild(src, mats)
+
+    mesh_coder.rebuild_batch = recorded
+    sched = EcBatchScheduler(mesh_coder=mesh_coder, window_s=0.02,
+                             max_batch=64)
+    lrc_bc, rs_bc = BatchCoder(sched, lrc), BatchCoder(sched)
+    try:
+        # encode both at once through the one scheduler
+        batch_counts.start()
+        t0 = time.monotonic()
+        _run_threads([(streaming.pipelined_encode_file, (vols[vid][0],),
+                       {"coder": bc, "batch_size": layout.SMALL_BLOCK_SIZE})
+                      for vid, bc in ((21, lrc_bc), (22, rs_bc))])
+        seconds["encode"] = time.monotonic() - t0
+        enc = sched.stats()
+        enc_launches = batch_counts.read("lrc_volume", "gf_apply_batch",
+                                         enc["mesh_batches"])
+        mixed = sum(1 for rs, lr in carried if rs and lr)
+        if enc["cpu_batches"] or enc["coder_fallbacks"] or not mixed:
+            raise AssertionError(f"LRC + RS encode: {mixed} launches carried "
+                                 f"both parity matrices, stats {enc}")
+        t0 = time.monotonic()
+        sha = {}
+        for vid, host in ((21, LrcCoderMT()), (22, CpuCoderMT())):
+            base, _, size = vols[vid]
+            sha[vid] = [sha256_file(base + layout.shard_ext(i))
+                        for i in range(14)]
+            if sha[vid] != cpu_shard_sha(base, size, host):
+                raise AssertionError(f"volume {vid}: shards differ from "
+                                     f"{type(host).__name__}'s")
+        seconds["check_against_host"] = time.monotonic() - t0
+
+        # lose shard 7 on both; read every needle through a card Store
+        for vid in vols:
+            base = vols[vid][0]
+            os.rename(base + ".ec07", base + ".ec07.lost")
+        store = Store([d])
+        for vid in vols:
+            store.mount_ec_shards("", vid, [i for i in range(14) if i != 7])
+        lrc_coder = store.coder_for(store.find_ec_volume(21))
+        if not isinstance(lrc_coder, LrcCoder):
+            raise AssertionError(f"the LRC volume decodes on {lrc_coder}")
+        expect = {vid: _lost_intervals(store.find_ec_volume(vid),
+                                       vols[vid][1], (7,)) for vid in vols}
+        counts.start()
+        reads = {}
+        for vid in vols:
+            reads[vid] = _read_all(store, vid, vols[vid][1])
+        rec = dict(store.ec_recover_stats)
+        read_launches = counts.read("lrc_volume", "gf_apply", rec["generic"])
+        store.close()
+        if rec != {"local": expect[21], "global": 0, "generic": expect[22]}:
+            raise AssertionError(f"recoveries {rec}, expected {expect}")
+
+        # one block through the facade: a 5-source plan, a CPU batch
+        base = vols[21][0]
+        n = layout.SMALL_BLOCK_SIZE
+        block = {}
+        for i in range(14):
+            path = base + layout.shard_ext(i) + (".lost" if i == 7 else "")
+            with open(path, "rb") as f:
+                block[i] = f.read(n)
+        cpu_before = sched.stats()["cpu_batches"]
+        batch_counts.start()
+        full = lrc_bc.reconstruct([None if i == 7 else block[i]
+                                   for i in range(14)])
+        facade = {"launches": batch_counts.now(),
+                  "cpu_batches": sched.stats()["cpu_batches"] - cpu_before,
+                  "fallbacks": sched.stats()["coder_fallbacks"]}
+        if full[7] != block[7] or facade["cpu_batches"] != 1 or \
+                facade["fallbacks"] or any(facade["launches"].values()):
+            raise AssertionError(f"facade reconstruct of shard 7: {facade}")
+        os.rename(base + ".ec07.lost", base + ".ec07")
+
+        # lose {2,12}, rebuild on the facade through K1's batch entry
+        for i in (2, 12):
+            os.remove(base + layout.shard_ext(i))
+        mesh_before = sched.stats()["mesh_batches"]
+        stats: dict = {}
+        batch_counts.start()
+        t0 = time.monotonic()
+        rebuilt = encoder.rebuild_ec_files(base, lrc_bc, pipelined=True,
+                                           stats=stats)
+        seconds["rebuild"] = time.monotonic() - t0
+        st = sched.stats()
+        reb_launches = batch_counts.read("lrc_volume", "gf_apply_batch",
+                                         st["mesh_batches"] - mesh_before)
+        if sorted(rebuilt) != [2, 12] or st["coder_fallbacks"] or \
+                st["cpu_batches"] != enc["cpu_batches"] + 1:
+            raise AssertionError(f"facade rebuild {rebuilt}, stats {st}")
+        for i in (2, 12):
+            if sha256_file(base + layout.shard_ext(i)) != sha[21][i]:
+                raise AssertionError(f"rebuilt LRC shard {i} differs")
+    finally:
+        sched.stop()
+        shutil.rmtree(d, ignore_errors=True)
+    dat = sum(size for _, _, size in vols.values())
+    emit("lrc_volume", schemes={"21": "LRC(10,2,2)", "22": "RS(10,4)"},
+         volume_mb=volume_mb, dat_bytes=dat,
+         encode={"MBps": dat / seconds["encode"] / 1e6,
+                 "launches": enc_launches, "jobs": enc["jobs_total"],
+                 "mesh_batches": enc["mesh_batches"],
+                 "launches_with_both_parities": mixed,
+                 "max_coalesced": enc["max_coalesced"],
+                 "shards_sha256_equal_to_host": 28},
+         reads={"lost": [7], "needles": {v: len(vols[v][1]) for v in vols},
+                "wall_s": reads, "recoveries": rec,
+                "lrc_local_from_sources": len(
+                    lrc_coder.plan_rebuild([i for i in range(14) if i != 7],
+                                           [7])[0]),
+                "launches": read_launches, "bytes_equal": True},
+         facade_block=facade,
+         rebuild={"lost": [2, 12], "sources": stats["sources"],
+                  "launches": reb_launches, "sha256_equal": True},
+         seconds=seconds,
+         reduced=f"two volumes of {volume_mb} MiB (--alt-volume-mb) for the "
+                 "smoke's time limit")
+
+
 def kernel_entry(name: str, source: str, replaces: str, counts: PathCounts,
                  worst: int, row: dict, timing: list[dict]) -> dict:
     launches = counts.total(name)
@@ -1345,9 +1815,16 @@ def main() -> int:
     # the volume paths above
     batch_counts = PathCounts()
     try:
-        main_path(work, args.volume_mb, args.seed, counts)
+        deg, payloads = main_path(work, args.volume_mb, args.seed, counts)
+        store = degraded_reads(deg, payloads, args.seed, counts)
+        degraded_reads_batched(deg, payloads, batch_counts)
+        ec_delete(store, deg, payloads, args.seed)
+        del payloads
+        shutil.rmtree(deg)
         for k, m in ALT_SCHEMES:
             alt_scheme(work, k, m, args.alt_volume_mb, args.seed, counts)
+        lrc_volume(work, args.alt_volume_mb, args.seed, counts,
+                   batch_counts)
         batch_volumes(work, args.batch_volumes, args.batch_volume_mb,
                       args.seed, batch_counts)
         batch_encode_phase(args.seed, batch_counts,

@@ -61,8 +61,8 @@ class LrcScheme(RSScheme):
     (XOR) parity per group, g global RS parities. Shard ids are laid out
     data-first: [0..k) data, [k..k+l) local parities (group i's parity is
     shard k+i), [k+l..k+l+g) global parities. Default LRC(10,2,2) keeps
-    total_shards == 14 == RS(10,4)'s. This package reads and writes the
-    scheme in .vif files; LRC coding itself is not ported yet."""
+    total_shards == 14 == RS(10,4)'s. Its coders are ops/lrc.py's
+    LrcCoder / LrcCoderMT (host) and BatchCoder's LRC facade (the card)."""
 
     __slots__ = ("local_groups", "global_parities")
 
@@ -79,6 +79,31 @@ class LrcScheme(RSScheme):
     def __repr__(self):
         return (f"LRC({self.data_shards},{self.local_groups},"
                 f"{self.global_parities})")
+
+    @property
+    def group_size(self) -> int:
+        return self.data_shards // self.local_groups
+
+    def group_of(self, sid: int) -> Optional[int]:
+        """Local group index of a shard id, or None for global parities."""
+        if sid < self.data_shards:
+            return sid // self.group_size
+        if sid < self.data_shards + self.local_groups:
+            return sid - self.data_shards
+        return None
+
+    def group_members(self, g: int) -> list[int]:
+        """Data shard ids + the local parity id of group g."""
+        lo = g * self.group_size
+        return list(range(lo, lo + self.group_size)) + [self.data_shards + g]
+
+    def local_parity_ids(self) -> list[int]:
+        return list(range(self.data_shards,
+                          self.data_shards + self.local_groups))
+
+    def global_parity_ids(self) -> list[int]:
+        return list(range(self.data_shards + self.local_groups,
+                          self.total_shards))
 
     def __eq__(self, other):
         return (type(other) is type(self)
@@ -116,8 +141,7 @@ def scheme_from_dict(d: Optional[dict]) -> RSScheme:
 
 def coder_name_for_scheme(scheme: RSScheme, fallback: str = "cpu-mt") -> str:
     """The registry name that matches a scheme's code family; `fallback`
-    names the RS coder to use (its -mt suffix carries over to LRC, whose
-    coders are not ported yet)."""
+    names the RS coder to use (its -mt suffix carries over to LRC)."""
     if isinstance(scheme, LrcScheme):
         return "lrc-mt" if fallback.endswith("-mt") else "lrc"
     return fallback
@@ -126,8 +150,8 @@ def coder_name_for_scheme(scheme: RSScheme, fallback: str = "cpu-mt") -> str:
 class ErasureCoder(abc.ABC):
     """Codec over byte buffers. Implementations here: TorchCoder (the
     card), MxuCoder (its parity on the tensor cores), CpuCoder (the host),
-    MeshCoder (batches over a mesh of cards) and BatchCoder (the batch
-    scheduler's facade)."""
+    MeshCoder (batches over a mesh of cards), BatchCoder (the batch
+    scheduler's facade) and LrcCoder (the host's LRC)."""
 
     def __init__(self, scheme: RSScheme = DEFAULT_SCHEME):
         self.scheme = scheme
@@ -150,6 +174,25 @@ class ErasureCoder(abc.ABC):
             for i in range(k, self.scheme.total_shards)
         ]
 
+    def encode_array(self, data) -> "np.ndarray":
+        """(k, n) uint8 -> (m, n) uint8 parity. Default goes through the
+        bytes API; coders override with a zero-copy path."""
+        import numpy as np
+        full = self.encode([np.ascontiguousarray(row).tobytes() for row in data])
+        k = self.scheme.data_shards
+        return np.stack([np.frombuffer(full[k + i], dtype=np.uint8)
+                         for i in range(self.scheme.parity_shards)])
+
+    def reconstruct_arrays(self, present: dict, n: int) -> list:
+        """present: {shard_id: (n,) uint8 array}. Returns all `total` shards
+        as uint8 arrays (missing ones reconstructed)."""
+        import numpy as np
+        shards = [None] * self.scheme.total_shards
+        for i, a in present.items():
+            shards[i] = np.ascontiguousarray(a).tobytes()
+        full = self.reconstruct(shards)
+        return [np.frombuffer(s, dtype=np.uint8) for s in full]
+
     def verify(self, shards: Sequence[bytes]) -> bool:
         """True iff parity shards are consistent with data shards."""
         redone = self.encode([bytes(s) for s in shards])
@@ -169,7 +212,7 @@ def register_coder(name: str):
 
 
 # coders of the host: they take no device
-HOST_CODERS = ("cpu", "cpu-mt")
+HOST_CODERS = ("cpu", "cpu-mt", "lrc", "lrc-mt")
 
 
 def make_coder(name: str = "torch", scheme: RSScheme = DEFAULT_SCHEME,
@@ -180,12 +223,17 @@ def make_coder(name: str = "torch", scheme: RSScheme = DEFAULT_SCHEME,
     block-groups over a mesh of cards. These raise when `device` is a CUDA
     device and none is present, and run the plain PyTorch versions only
     when the caller passes device='cpu'. 'cpu' and 'cpu-mt'
-    (ops/rs_cpu.py) are the host coder, single- and multi-threaded; they
-    ignore `device`."""
+    (ops/rs_cpu.py) are the host coder, single- and multi-threaded, and
+    'lrc' / 'lrc-mt' (ops/lrc.py) the host's locally repairable code
+    (any non-LRC scheme becomes LrcScheme()); they ignore `device`."""
     # import for registration side effects
     from seaweedfs_tpu_torch.ops import rs_torch  # noqa: F401
     if name in HOST_CODERS:
         from seaweedfs_tpu_torch.ops import rs_cpu  # noqa: F401
+    if name in ("lrc", "lrc-mt"):
+        from seaweedfs_tpu_torch.ops import lrc  # noqa: F401
+        if not isinstance(scheme, LrcScheme):
+            scheme = LrcScheme()
     if name == "mxu":
         from seaweedfs_tpu_torch.ops import rs_mxu  # noqa: F401
     if name == "mesh":

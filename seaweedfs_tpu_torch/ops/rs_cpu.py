@@ -177,7 +177,8 @@ class CpuCoder(ErasureCoder):
     def __init__(self, scheme: RSScheme = DEFAULT_SCHEME,
                  use_native: bool = True, workers: int | str = 1):
         if isinstance(scheme, LrcScheme):
-            raise ValueError(f"{scheme}: LRC coding is not ported yet")
+            raise ValueError(f"{scheme}: an RS coder; LRC codes on "
+                             "ops/lrc.LrcCoder or through BatchCoder")
         super().__init__(scheme)
         self.use_native = use_native
         self.workers = auto_workers() if workers == "auto" else max(1, workers)

@@ -123,7 +123,8 @@ class MeshCoder(ErasureCoder):
                  n_devices: Optional[int] = None,
                  mesh: Optional[mesh_mod.Mesh] = None, device="cuda"):
         if isinstance(scheme, LrcScheme):
-            raise ValueError(f"{scheme}: LRC coding is not ported yet")
+            raise ValueError(f"{scheme}: an RS coder; LRC codes on "
+                             "ops/lrc.LrcCoder or through BatchCoder")
         super().__init__(scheme)
         self.mesh = mesh if mesh is not None else \
             mesh_mod.batch_mesh(n_devices, device=device)

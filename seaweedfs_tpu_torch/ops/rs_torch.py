@@ -121,7 +121,8 @@ class TorchCoder(ErasureCoder):
     def __init__(self, scheme: RSScheme = DEFAULT_SCHEME,
                  device="cuda"):
         if isinstance(scheme, LrcScheme):
-            raise ValueError(f"{scheme}: LRC coding is not ported yet")
+            raise ValueError(f"{scheme}: an RS coder; LRC codes on "
+                             "ops/lrc.LrcCoder or through BatchCoder")
         super().__init__(scheme)
         self.device = resolve_device(device)
         self.parity = gf256.parity_matrix(scheme.data_shards,

@@ -23,22 +23,30 @@ Scheduling contract:
     the ambient class is captured at submit) before dispatch, so a
     background rebuild flood cannot starve a degraded-read
     reconstruction sharing the mesh;
-  - jobs are grouped by (kind, shape); a group whose jobs the mesh does
-    not take (fewer than k source rows, or more than m output rows) is a
-    routing decision: it runs on the CPU coder without benching the mesh;
+  - jobs are grouped by shape; a group of plain encodes is one launch
+    under the scheduler's parity matrix, and a group that holds any
+    matrix-carrying job (a rebuild, or an encode of another scheme) is one
+    launch with a matrix per job, the plain encodes carrying the
+    scheduler's parity matrix; a group whose jobs the mesh does
+    not take (fewer than k source rows — an LRC group-local repair — or
+    more than m output rows) is a routing decision: it runs on the CPU
+    coder without benching the mesh, and counts as a cpu batch, not a
+    fallback;
   - the CPU fallback is LOAD-BEARING: when a mesh dispatch raises, the
     failed batch and everything queued behind it drain through CpuCoderMT
     with bit-identical results, ``coder_fallbacks`` increments, the reason
     is classified (parallel/mesh.classify_failure) and logged, and the
     mesh is benched for a cooldown before being retried.
 
-Two differences from the JAX package, on purpose: its constructor quietly
+Three differences from the JAX package, on purpose: its constructor quietly
 runs on the CPU coder when no mesh can be built; this one raises without a
 card unless it is given device="cpu", a mesh (of CPU lanes, say) or a
 mesh_coder (the fallback after a dispatch failure is the JAX package's).
 And its dispatcher, once a batch's earliest deadline has passed, sends the
 batch without looking at the queue, so under a backlog every job already
-waiting goes out alone; this one takes them along.
+waiting goes out alone; this one takes them along. Its dispatcher also
+groups by (kind, shape), so an RS encode and an LRC encode of the same
+shape go out in two launches; here they share one.
 
 Timing routes through utils/clockctl, so a test can install a virtual
 clock; blocking primitives (queue waits) stay real.
@@ -54,7 +62,8 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 
 from seaweedfs_tpu_torch.models.coder import (DEFAULT_SCHEME, ErasureCoder,
-                                              LrcScheme, RSScheme)
+                                              RSScheme)
+from seaweedfs_tpu_torch.ops import gf256
 from seaweedfs_tpu_torch.qos import CLASSES, current_class
 from seaweedfs_tpu_torch.utils import clockctl, glog, profiler
 from seaweedfs_tpu_torch.utils.metrics import RED_BUCKETS, Histogram
@@ -115,6 +124,10 @@ class EcBatchScheduler:
             from seaweedfs_tpu_torch.ops.rs_cpu import CpuCoderMT
             cpu_coder = CpuCoderMT(scheme)
         self._cpu = cpu_coder
+        # what a plain encode carries when it shares a launch with jobs
+        # that bring their own matrix
+        self._parity = gf256.parity_matrix(scheme.data_shards,
+                                           scheme.parity_shards)
         self.fallback_reason: Optional[str] = None
         self._down_until = 0.0
         # counters are only written by the dispatcher thread (and stop());
@@ -236,7 +249,7 @@ class EcBatchScheduler:
         batch.sort(key=lambda j: (_rank(j.cls), j.deadline))
         groups: dict[tuple, list] = {}
         for j in batch:
-            groups.setdefault((j.kind,) + j.data.shape, []).append(j)
+            groups.setdefault(j.data.shape, []).append(j)
         # profiler attribution: the dispatcher thread does the batch's
         # work, so samples land under the batch's best (first) class
         with profiler.scope(cls=batch[0].cls or "background",
@@ -282,11 +295,13 @@ class EcBatchScheduler:
         # the jobs go to the mesh as a list: it stages them straight into
         # its pinned buffer, with no stacked copy in between
         datas = [j.data for j in jobs]
-        if jobs[0].kind == "encode":
+        if all(j.mat is None for j in jobs):
             out = self._mesh.encode_batch(datas)
             recs = [out[i] for i in range(len(jobs))]
         else:
-            recs = self._mesh.rebuild_batch(datas, [j.mat for j in jobs])
+            recs = self._mesh.rebuild_batch(
+                datas, [self._parity if j.mat is None else j.mat
+                        for j in jobs])
         for j, rec in zip(jobs, recs):
             j.future.set_result(np.ascontiguousarray(rec[:, :j.n]))
 
@@ -353,18 +368,17 @@ class BatchCoder(ErasureCoder):
     pipelines coalesce into device-sized batches without knowing about
     each other.
 
-    Pass a ``scheme`` of another RS code to get a facade for it sharing
-    the SAME scheduler: its encodes carry their own parity matrix, so
-    volumes of both codes coalesce into one drain. LRC schemes raise until
-    ops/lrc.py is ported."""
+    Pass a ``scheme`` of another code — another RS shape, or an
+    LrcScheme — to get a facade for it sharing the SAME scheduler: its
+    encodes and rebuilds carry their own GF matrices, so volumes of both
+    codes coalesce into one drain and each future demuxes exactly its own
+    rows. An LRC plan that reads fewer than k sources (a group-local
+    repair) is routed to the scheduler's host coder."""
 
     def __init__(self, scheduler: EcBatchScheduler,
                  scheme: Optional[RSScheme] = None):
         if scheme is None:
             scheme = scheduler.scheme
-        if isinstance(scheme, LrcScheme):
-            raise ValueError(f"{scheme}: BatchCoder's LRC branch waits for "
-                             "ops/lrc.py, which is not ported yet")
         super().__init__(scheme)
         self.scheduler = scheduler
         from seaweedfs_tpu_torch.models.coder import (coder_name_for_scheme,
@@ -403,18 +417,28 @@ class BatchCoder(ErasureCoder):
             return out
         return rec
 
+    def _rebuild_plan(self, present: Sequence[int], missing: Sequence[int]
+                      ) -> tuple[list[int], np.ndarray]:
+        # a plan-capable host (LRC) chooses its own source subset — the
+        # first k of sorted(present) can be rank-deficient for it
+        if hasattr(self._host, "plan_rebuild"):
+            return self._host.plan_rebuild(present, missing)
+        return (sorted(present)[:self.scheme.data_shards],
+                self.rebuild_matrix(present, missing))
+
     def _recover(self, shards: Sequence[Optional[bytes]],
                  wanted: list[int]) -> list[Optional[bytes]]:
         k, total = self.scheme.data_shards, self.scheme.total_shards
         present = [i for i in range(total) if shards[i] is not None]
-        if len(present) < k:
+        if len(present) < k and not hasattr(self._host, "plan_rebuild"):
             raise ValueError(f"too few shards: {len(present)} < {k}")
         out = [bytes(s) if s is not None else None for s in shards]
         if not wanted:
             return out
+        src_sids, mat = self._rebuild_plan(present, wanted)
         src = np.stack([np.frombuffer(bytes(shards[i]), dtype=np.uint8)
-                        for i in sorted(present)[:k]])
-        rec = self.scheduler.rebuild(src, self.rebuild_matrix(present, wanted))
+                        for i in src_sids])
+        rec = self.scheduler.rebuild(src, mat)
         for r, i in enumerate(wanted):
             out[i] = rec[r].tobytes()
         return out

@@ -33,7 +33,6 @@ from __future__ import annotations
 import os
 import queue
 import threading
-import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -42,6 +41,7 @@ import torch
 from seaweedfs_tpu_torch.models.coder import (DEFAULT_SCHEME, ErasureCoder,
                                               RSScheme, make_coder)
 from seaweedfs_tpu_torch.storage.erasure_coding import layout
+from seaweedfs_tpu_torch.utils import clockctl
 
 DEFAULT_PIPE_BATCH = 16 * 1024 * 1024
 
@@ -237,14 +237,14 @@ def _writer_stage(pl: _Pipeline, write_q: "queue.Queue", files: list,
         if item is None:
             break
         data, out, done = item
-        t0 = time.monotonic()
+        t0 = clockctl.monotonic()
         if done is not None:
             done.synchronize()
-        t1 = time.monotonic()
+        t1 = clockctl.monotonic()
         rows = [*data, *out] if write_inputs else list(out)
         for f, row in zip(files, rows):
             f.write(row)
-        busy += time.monotonic() - t1
+        busy += clockctl.monotonic() - t1
         wait += t1 - t0
         in_pool.put(data)
         out_pool.put(out)
@@ -285,16 +285,16 @@ def pipelined_encode_file(base_file_name: str,
     data_pool = _BufferPool(pin=lane is not None)
     parity_pool = _BufferPool(pin=lane is not None)
     slock = threading.Lock()
-    wall0 = time.monotonic()
+    wall0 = clockctl.monotonic()
 
     def reader_stage(rid: int):
         busy = 0.0
         with open(dat_path, "rb") as f:
             for seq in range(rid, len(descs), readers):
-                t0 = time.monotonic()
+                t0 = clockctl.monotonic()
                 buf = data_pool.get((k, descs[seq][3]))
                 _read_rows(f, buf, descs[seq], k)
-                busy += time.monotonic() - t0
+                busy += clockctl.monotonic() - t0
                 pl.put(read_q, (seq, buf))
         _merge_stats(stats, slock, read_s=busy)
 
@@ -313,20 +313,23 @@ def pipelined_encode_file(base_file_name: str,
                 seq, buf = pl.get(read_q)
                 stash[seq] = buf
             data = stash.pop(expected)
-            t0 = time.monotonic()
+            t0 = clockctl.monotonic()
             pbuf = parity_pool.get((m, data.shape[1]))
             done = None
             if lane is not None:
                 done = lane.run(coder.parity, data, pbuf)
-            else:
+            elif hasattr(coder, "encode_into"):
                 coder.encode_into(data, pbuf)
-            encode_busy += time.monotonic() - t0
+            else:
+                # a bytes-only coder: encode_array's seam default
+                pbuf[:] = np.asarray(coder.encode_array(data))
+            encode_busy += clockctl.monotonic() - t0
             pl.put(write_q, (data, pbuf, done))
         pl.put(write_q, None)
         writer_t.join()
         pl.join()
         _merge_stats(stats, slock, encode_s=encode_busy,
-                     wall_s=time.monotonic() - wall0,
+                     wall_s=clockctl.monotonic() - wall0,
                      bytes_in=dat_size, batches=len(descs))
         outs.commit()
     except _Aborted:
@@ -371,8 +374,13 @@ def pipelined_rebuild_files(base_file_name: str,
     missing = [i for i in range(total) if i not in present]
     if not missing:
         return []
-    if len(present) < k:
+    if len(present) < k and not hasattr(coder, "plan_rebuild"):
         raise ValueError(f"need {k} shards, have {len(present)}")
+    if not hasattr(coder, "rebuild_matrix"):
+        # a bytes-only coder: rebuild on the host coder, as the JAX
+        # package does
+        from seaweedfs_tpu_torch.ops.rs_cpu import CpuCoder
+        coder = CpuCoder(coder.scheme, workers="auto")
     src, rmat = plan_rebuild_sources(coder, present, missing)
     n_src = len(src)
 
@@ -386,7 +394,7 @@ def pipelined_rebuild_files(base_file_name: str,
     data_pool = _BufferPool(pin=lane is not None)
     out_pool = _BufferPool(pin=lane is not None)
     slock = threading.Lock()
-    wall0 = time.monotonic()
+    wall0 = clockctl.monotonic()
 
     def reader_stage():
         busy = 0.0
@@ -394,7 +402,7 @@ def pipelined_rebuild_files(base_file_name: str,
         try:
             for off in offs:
                 n = min(batch_size, shard_size - off)
-                t0 = time.monotonic()
+                t0 = clockctl.monotonic()
                 buf = data_pool.get((n_src, n))
                 for r, f in enumerate(ins):
                     f.seek(off)
@@ -403,7 +411,7 @@ def pipelined_rebuild_files(base_file_name: str,
                         raise IOError(
                             f"short read on {base_file_name}"
                             f"{layout.shard_ext(src[r])} at {off}")
-                busy += time.monotonic() - t0
+                busy += clockctl.monotonic() - t0
                 pl.put(read_q, buf)
             pl.put(read_q, None)
         finally:
@@ -422,20 +430,20 @@ def pipelined_rebuild_files(base_file_name: str,
             buf = pl.get(read_q)
             if buf is None:
                 break
-            t0 = time.monotonic()
+            t0 = clockctl.monotonic()
             rec = out_pool.get((len(missing), buf.shape[1]))
             done = None
             if lane is not None:
                 done = lane.run(rmat, buf, rec)
             else:
                 coder.reconstruct_rows(buf, rmat, rec)
-            busy += time.monotonic() - t0
+            busy += clockctl.monotonic() - t0
             pl.put(write_q, (buf, rec, done))
         pl.put(write_q, None)
         writer_t.join()
         pl.join()
         _merge_stats(stats, slock, encode_s=busy,
-                     wall_s=time.monotonic() - wall0,
+                     wall_s=clockctl.monotonic() - wall0,
                      bytes_in=shard_size * n_src, batches=len(offs),
                      rebuilt_bytes=shard_size * len(missing))
         if stats is not None:

@@ -1,10 +1,10 @@
-"""EC volume reads: .vif sidecar, sorted-index search, shard files.
+"""EC volume serving: sorted-index search, deletion journal, shard files.
 
-The part of seaweedfs_tpu/storage/erasure_coding/ec_volume.py the EC path
-needs (reference weed/storage/erasure_coding/ec_volume.go, ec_shard.go,
-ec_volume_info.go): mount local shards, find a needle in the .ecx, map
-its record to shard intervals and read them. Deletion (.ecj writes) is
-not ported yet; the journal is read for the decoder.
+The port of seaweedfs_tpu/storage/erasure_coding/ec_volume.py (reference
+weed/storage/erasure_coding/ec_volume.go, ec_shard.go, ec_volume_delete.go,
+ec_volume_info.go). One difference: read_interval maps an interval to its
+shard with the volume's own data-shard count, where the JAX package
+assumes 10 and misreads RS(6,3) and RS(12,6) volumes.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from __future__ import annotations
 import json
 import os
 import threading
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 from seaweedfs_tpu_torch.models.coder import scheme_from_dict, scheme_to_dict
 from seaweedfs_tpu_torch.storage import types as t
@@ -32,8 +32,8 @@ def read_volume_info(base_file_name: str) -> dict:
 
 
 def write_volume_info(base_file_name: str, version: int, scheme) -> None:
-    """Persist the .vif sidecar: version + the volume's CodeSpec (the same
-    bytes seaweedfs_tpu writes)."""
+    """Persist the .vif sidecar: version + the volume's CodeSpec, so a
+    mixed-code cluster can pick the right coder per volume at load."""
     with open(base_file_name + ".vif", "w", encoding="utf-8") as f:
         json.dump({"version": version,
                    "code": scheme_to_dict(scheme)}, f)
@@ -43,8 +43,16 @@ class NotFoundError(Exception):
     pass
 
 
-def search_needle_from_sorted_index(ecx_file, ecx_size: int,
-                                    needle_id: int) -> tuple[int, int]:
+def mark_needle_deleted(f, entry_offset: int) -> None:
+    """Overwrite the size field of an .ecx entry with the tombstone
+    (reference ec_volume_delete.go:13-25)."""
+    f.seek(entry_offset + t.NEEDLE_ID_SIZE + t.OFFSET_SIZE)
+    f.write(t.pack_entry(0, 0, t.TOMBSTONE_FILE_SIZE)[-t.SIZE_SIZE:])
+
+
+def search_needle_from_sorted_index(
+        ecx_file, ecx_size: int, needle_id: int,
+        process: Optional[Callable] = None) -> tuple[int, int]:
     """Binary search a sorted 16-byte-entry index for needle_id. Returns
     (offset_units, size); raises NotFoundError
     (reference ec_volume.go:221-250 SearchNeedleFromSortedIndex)."""
@@ -52,9 +60,11 @@ def search_needle_from_sorted_index(ecx_file, ecx_size: int,
     while lo < hi:
         mid = (lo + hi) // 2
         ecx_file.seek(mid * t.NEEDLE_MAP_ENTRY_SIZE)
-        key, off, size = t.unpack_entry(
-            ecx_file.read(t.NEEDLE_MAP_ENTRY_SIZE))
+        buf = ecx_file.read(t.NEEDLE_MAP_ENTRY_SIZE)
+        key, off, size = t.unpack_entry(buf)
         if key == needle_id:
+            if process is not None:
+                process(ecx_file, mid * t.NEEDLE_MAP_ENTRY_SIZE)
             return off, size
         if key < needle_id:
             lo = mid + 1
@@ -75,6 +85,49 @@ def iterate_ecj_file(base_file_name: str) -> Iterator[int]:
             if len(buf) != t.NEEDLE_ID_SIZE:
                 return
             yield int.from_bytes(buf, "big")
+
+
+class ShardBits:
+    """Bitmask of owned shard ids (reference ec_volume_info.go:65-117)."""
+
+    __slots__ = ("bits",)
+
+    def __init__(self, bits: int = 0):
+        self.bits = bits
+
+    def add_shard_id(self, shard_id: int) -> "ShardBits":
+        return ShardBits(self.bits | (1 << shard_id))
+
+    def remove_shard_id(self, shard_id: int) -> "ShardBits":
+        return ShardBits(self.bits & ~(1 << shard_id))
+
+    def has_shard_id(self, shard_id: int) -> bool:
+        return bool(self.bits & (1 << shard_id))
+
+    def shard_ids(self) -> list[int]:
+        return [i for i in range(layout.TOTAL_SHARDS_COUNT)
+                if self.has_shard_id(i)]
+
+    def shard_id_count(self) -> int:
+        return bin(self.bits).count("1")
+
+    def minus_parity_shards(self) -> "ShardBits":
+        b = self
+        for i in range(layout.DATA_SHARDS_COUNT, layout.TOTAL_SHARDS_COUNT):
+            b = b.remove_shard_id(i)
+        return b
+
+    def plus(self, other: "ShardBits") -> "ShardBits":
+        return ShardBits(self.bits | other.bits)
+
+    def minus(self, other: "ShardBits") -> "ShardBits":
+        return ShardBits(self.bits & ~other.bits)
+
+    def __eq__(self, other):
+        return isinstance(other, ShardBits) and other.bits == self.bits
+
+    def __repr__(self):
+        return f"ShardBits({self.shard_ids()})"
 
 
 class EcVolumeShard:
@@ -100,9 +153,13 @@ class EcVolumeShard:
     def close(self):
         self._f.close()
 
+    def destroy(self):
+        self.close()
+        os.remove(self.path)
+
 
 class EcVolume:
-    """A mounted EC volume: local shards + .ecx index
+    """A mounted EC volume: local shards + .ecx index + .ecj journal
     (reference ec_volume.go:25-76)."""
 
     def __init__(self, directory: str, collection: str, volume_id: int,
@@ -118,8 +175,9 @@ class EcVolume:
         self.scheme = scheme_from_dict(info.get("code"))
         self.shards: dict[int, EcVolumeShard] = {}
         self._ecx_lock = threading.Lock()
+        self._ecj_lock = threading.Lock()
         ecx = self.base_file_name + ".ecx"
-        self.ecx_file = open(ecx, "rb") if os.path.exists(ecx) else None
+        self.ecx_file = open(ecx, "r+b") if os.path.exists(ecx) else None
         self.ecx_file_size = os.path.getsize(ecx) if self.ecx_file else 0
 
     @property
@@ -135,6 +193,15 @@ class EcVolume:
             return False
         self.shards[shard.shard_id] = shard
         return True
+
+    def delete_shard(self, shard_id: int) -> Optional[EcVolumeShard]:
+        return self.shards.pop(shard_id, None)
+
+    def shard_bits(self) -> ShardBits:
+        b = ShardBits()
+        for sid in self.shards:
+            b = b.add_shard_id(sid)
+        return b
 
     def shard_size(self) -> int:
         for s in self.shards.values():
@@ -160,19 +227,36 @@ class EcVolume:
         offset, size = self.find_needle_from_ecx(needle_id)
         if t.size_is_deleted(size):
             return [], offset, size
+        shard_size = self.shard_size()
         record = t.get_actual_size(size, self.version)
         intervals = layout.locate_data(
             large_block, small_block,
-            self.data_shards * self.shard_size(), offset, record,
+            self.data_shards * shard_size, offset, record,
             data_shards=self.data_shards)
         return intervals, offset, size
+
+    def delete_needle(self, needle_id: int) -> None:
+        """Tombstone in .ecx + journal append to .ecj
+        (reference ec_volume_delete.go:27-49)."""
+        if self.ecx_file is None:
+            raise NotFoundError("no ecx file")
+        try:
+            with self._ecx_lock:
+                search_needle_from_sorted_index(
+                    self.ecx_file, self.ecx_file_size, needle_id,
+                    mark_needle_deleted)
+        except NotFoundError:
+            return
+        with self._ecj_lock:
+            with open(self.base_file_name + ".ecj", "ab") as f:
+                f.write(needle_id.to_bytes(t.NEEDLE_ID_SIZE, "big"))
 
     def read_interval(self, interval: layout.Interval,
                       large_block: int = layout.LARGE_BLOCK_SIZE,
                       small_block: int = layout.SMALL_BLOCK_SIZE
                       ) -> tuple[Optional[bytes], int]:
         """Read one interval from a LOCAL shard. Returns (data, shard_id);
-        data is None when the shard is not local (the caller goes remote or
+        data is None when the shard is not local (caller goes remote /
         degraded, reference store_ec.go:188-218)."""
         shard_id, off = interval.to_shard_id_and_offset(
             large_block, small_block, self.data_shards)
@@ -188,3 +272,12 @@ class EcVolume:
         for s in self.shards.values():
             s.close()
         self.shards.clear()
+
+    def destroy(self):
+        for s in list(self.shards.values()):
+            s.destroy()
+        self.close()
+        for ext in (".ecx", ".ecj", ".vif"):
+            p = self.base_file_name + ext
+            if os.path.exists(p):
+                os.remove(p)

@@ -53,13 +53,21 @@ def write_sorted_ecx(base_file_name: str, ext: str = ".ecx") -> None:
 
 
 def plan_rebuild_sources(coder: ErasureCoder, present, missing):
-    """(src_sids, rebuild_mat) for a local rebuild: the first data_shards
-    survivors, after dropping sources whose matrix column is all zero."""
-    k = coder.scheme.data_shards
-    src = sorted(present)[:k]
-    rmat = np.asarray(coder.rebuild_matrix(present, missing))
-    used = [j for j in range(len(src)) if rmat[:, j].any()] or [0]
-    return [src[j] for j in used], np.ascontiguousarray(rmat[:, used])
+    """(src_sids, rebuild_mat) for a local rebuild, or (None, None) when
+    the coder only speaks the bytes API. Coders with plan_rebuild (LRC)
+    choose the cheapest source set — a single-group loss reads the ~5
+    surviving group members; rebuild_matrix coders (RS) read the first
+    data_shards survivors after dropping all-zero matrix columns."""
+    if hasattr(coder, "plan_rebuild"):
+        return coder.plan_rebuild(present, missing)
+    if hasattr(coder, "rebuild_matrix"):
+        k = coder.scheme.data_shards
+        src = sorted(present)[:k]
+        rmat = np.asarray(coder.rebuild_matrix(present, missing))
+        used = [j for j in range(len(src)) if rmat[:, j].any()] or [0]
+        return ([src[j] for j in used],
+                np.ascontiguousarray(rmat[:, used]))
+    return None, None
 
 
 def _read_block(f, offset: int, length: int) -> np.ndarray:
@@ -139,33 +147,69 @@ def rebuild_ec_files(base_file_name: str, coder: Optional[ErasureCoder] = None,
     missing = [i for i in range(total) if i not in present]
     if not missing:
         return []
-    if len(present) < k:
+    if len(present) < k and not hasattr(coder, "plan_rebuild"):
+        # a plan-capable coder (LRC) may repair a group loss from fewer
+        # than k survivors; its plan raises if truly unrecoverable
         raise ValueError(f"need {k} shards, have {len(present)}")
 
     src, rmat = plan_rebuild_sources(coder, present, missing)
     shard_size = os.path.getsize(base_file_name + layout.shard_ext(present[0]))
-    ins = {i: open(base_file_name + layout.shard_ext(i), "rb") for i in src}
+    read_ids = src if src is not None else present
+    ins = {i: open(base_file_name + layout.shard_ext(i), "rb")
+           for i in read_ids}
     outs = {i: open(base_file_name + layout.shard_ext(i), "wb")
             for i in missing}
+    read_bytes = 0
     try:
         for off in range(0, shard_size, batch_size):
             n = min(batch_size, shard_size - off)
-            rows = np.empty((len(src), n), dtype=np.uint8)
-            for r, i in enumerate(src):
-                ins[i].seek(off)
-                rows[r] = np.frombuffer(ins[i].read(n), dtype=np.uint8)
-            rec = coder.reconstruct_rows(rows, rmat)
-            for r, i in enumerate(missing):
-                outs[i].write(rec[r].tobytes())
+            if src is not None:
+                rows = np.empty((len(src), n), dtype=np.uint8)
+                for r, i in enumerate(src):
+                    ins[i].seek(off)
+                    rows[r] = np.frombuffer(ins[i].read(n), dtype=np.uint8)
+                read_bytes += n * len(src)
+                rec = coder.reconstruct_rows(rows, rmat)
+                for r, i in enumerate(missing):
+                    outs[i].write(rec[r].tobytes())
+            else:
+                # a bytes-only coder: reconstruct_arrays' seam default
+                have = {}
+                for i in present:
+                    ins[i].seek(off)
+                    have[i] = np.frombuffer(ins[i].read(n), dtype=np.uint8)
+                read_bytes += n * len(present)
+                full = coder.reconstruct_arrays(have, n)
+                for i in missing:
+                    outs[i].write(np.asarray(full[i]).tobytes())
     finally:
         for fh in ins.values():
             fh.close()
         for fh in outs.values():
             fh.close()
     if stats is not None:
-        stats["read_bytes"] = stats.get("read_bytes", 0) \
-            + shard_size * len(src)
+        stats["read_bytes"] = stats.get("read_bytes", 0) + read_bytes
         stats["rebuilt_bytes"] = stats.get("rebuilt_bytes", 0) \
             + shard_size * len(missing)
-        stats["sources"] = list(src)
+        stats["sources"] = list(read_ids)
     return missing
+
+
+def rebuild_ecx_file(base_file_name: str) -> None:
+    """Re-apply .ecj tombstones to .ecx then remove the journal
+    (reference ec_volume_delete.go:51-98 RebuildEcxFile)."""
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import (
+        NotFoundError, iterate_ecj_file, mark_needle_deleted,
+        search_needle_from_sorted_index)
+    ecj = base_file_name + ".ecj"
+    if not os.path.exists(ecj):
+        return
+    with open(base_file_name + ".ecx", "r+b") as ecx:
+        ecx_size = os.path.getsize(base_file_name + ".ecx")
+        for needle_id in iterate_ecj_file(base_file_name):
+            try:
+                search_needle_from_sorted_index(ecx, ecx_size, needle_id,
+                                                mark_needle_deleted)
+            except NotFoundError:
+                pass
+    os.remove(ecj)

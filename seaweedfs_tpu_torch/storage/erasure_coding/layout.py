@@ -47,6 +47,13 @@ def row_counts(dat_size: int, large_block: int = LARGE_BLOCK_SIZE,
     return n_large, n_small
 
 
+def shard_file_size(dat_size: int, large_block: int = LARGE_BLOCK_SIZE,
+                    small_block: int = SMALL_BLOCK_SIZE,
+                    data_shards: int = DATA_SHARDS_COUNT) -> int:
+    nl, ns = row_counts(dat_size, large_block, small_block, data_shards)
+    return nl * large_block + ns * small_block
+
+
 def iter_encode_batches(dat_size: int, large_block: int = LARGE_BLOCK_SIZE,
                         small_block: int = SMALL_BLOCK_SIZE,
                         batch_size: int = 0,

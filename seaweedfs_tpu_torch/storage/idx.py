@@ -8,6 +8,7 @@ big-endian. The same format is used sorted-by-id for .ecx files.
 from __future__ import annotations
 
 import io
+import os
 from typing import BinaryIO, Callable, Iterator
 
 from seaweedfs_tpu_torch.storage import types as t
@@ -39,3 +40,5 @@ def walk_index_file(path: str, fn: Callable[[int, int, int], None],
             fn(key, off, size)
 
 
+def index_entry_count(path: str, offset_bytes: int = 4) -> int:
+    return os.path.getsize(path) // t.entry_size(offset_bytes)

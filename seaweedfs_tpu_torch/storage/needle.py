@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import struct
+import time
 from typing import Optional
 
 from seaweedfs_tpu_torch.storage import types as t
@@ -220,6 +221,13 @@ class Needle:
             self.pairs = bytes(tail[idx:idx + ln])
             idx += ln
 
+    def disk_size(self, version: int = CURRENT_VERSION) -> int:
+        return t.get_actual_size(self.size, version)
+
+    def stamp(self) -> None:
+        self.append_at_ns = time.time_ns()
+
+
 def payload_window(buf, size: int,
                    version: int = CURRENT_VERSION) -> memoryview:
     """The data payload of a raw record blob as a zero-copy
@@ -234,6 +242,16 @@ def payload_window(buf, size: int,
     if data_size + 4 > size:
         raise ValueError("index out of range")
     return mv[h + 4:h + 4 + data_size]
+
+
+def payload_crc_stored(buf, size: int) -> int:
+    """The CRC field as stored in a raw record blob (v1/2/3 all keep
+    it right after the body). For locally written records this equals
+    the computed payload checksum; cache hits that skip the re-walk
+    (verified at admission) take the ETag from here."""
+    if size <= 0:
+        return 0
+    return struct.unpack_from(">I", buf, t.NEEDLE_HEADER_SIZE + size)[0]
 
 
 def verify_record_crc(buf, size: int, version: int = CURRENT_VERSION,

@@ -13,7 +13,8 @@ Two implementations mirroring the reference's roles:
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import io
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 
@@ -44,6 +45,11 @@ class MemDb:
             off, size = self._m[key]
             fn(key, off, size)
 
+    def items_ascending(self) -> Iterator[tuple[int, int, int]]:
+        for key in sorted(self._m):
+            off, size = self._m[key]
+            yield key, off, size
+
     @classmethod
     def load_from_idx(cls, idx_path: str, offset_bytes: int = 4) -> "MemDb":
         """Replay an .idx log: later entries win; tombstones delete
@@ -56,6 +62,14 @@ class MemDb:
                 db.delete(key)
         idxmod.walk_index_file(idx_path, visit, offset_bytes=offset_bytes)
         return db
+
+    def save_to_idx(self, path: str, offset_bytes: int = 4) -> None:
+        buf = io.BytesIO()
+        for key, off, size in self.items_ascending():
+            buf.write(t.pack_entry(key, off, size, offset_bytes))
+        with open(path, "wb") as f:
+            f.write(buf.getvalue())
+
 
 class CompactMap:
     """Serving needle map over sorted numpy arrays.

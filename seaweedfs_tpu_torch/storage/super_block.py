@@ -17,6 +17,9 @@ CURRENT_VERSION = 3
 # TTL stored units (reference weed/storage/needle/volume_ttl.go)
 TTL_UNITS = {"m": 1, "h": 2, "d": 3, "w": 4, "M": 5, "y": 6}
 TTL_UNIT_NAMES = {v: k for k, v in TTL_UNITS.items()}
+_UNIT_MINUTES = {1: 1, 2: 60, 3: 1440, 4: 10080, 5: 43200, 6: 525600}
+
+
 @dataclasses.dataclass(frozen=True)
 class TTL:
     count: int = 0
@@ -38,6 +41,15 @@ class TTL:
 
     def to_bytes(self) -> bytes:
         return bytes([self.count & 0xFF, self.unit & 0xFF])
+
+    def to_uint32(self) -> int:
+        if self.count == 0:
+            return 0
+        return (self.count << 8) | self.unit
+
+    @property
+    def minutes(self) -> int:
+        return self.count * _UNIT_MINUTES.get(self.unit, 0)
 
     def __str__(self):
         if self.count == 0 or self.unit == 0:
@@ -67,6 +79,10 @@ class ReplicaPlacement:
     def to_byte(self) -> int:
         return (self.diff_dc_count * 100 + self.diff_rack_count * 10
                 + self.same_rack_count)
+
+    @property
+    def copy_count(self) -> int:
+        return self.same_rack_count + self.diff_rack_count + self.diff_dc_count + 1
 
     def __str__(self):
         return f"{self.diff_dc_count}{self.diff_rack_count}{self.same_rack_count}"

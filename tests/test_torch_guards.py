@@ -210,3 +210,27 @@ def test_batch_wrapper_checks_inputs():
         rs_cuda.gf_apply_batch(mat, data, data[:, :3])
     with pytest.raises(ValueError, match="share their column count"):
         rs_cuda.gf_apply_batch([mat, mat[:, :9]], data)
+
+
+def test_store_raises_without_cuda_and_lrc_takes_no_device(no_cuda,
+                                                           tmp_path):
+    """Store() and Store(coder=None) take the card coder, so they raise
+    here (the JAX package's Store quietly takes the host coder); with
+    device="cpu" they run the plain version. The LRC coders are host
+    coders: make_coder("lrc") takes no device and runs without a card."""
+    from seaweedfs_tpu_torch.ops.lrc import LrcCoder
+    from seaweedfs_tpu_torch.storage.store import Store
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Store([str(tmp_path / "a")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Store([str(tmp_path / "b")], coder=None)
+    store = Store([str(tmp_path / "c")], device="cpu")
+    assert store.coder.device == torch.device("cpu")
+    store.close()
+    for name in ("lrc", "lrc-mt"):
+        coder = make_coder(name)
+        assert isinstance(coder, LrcCoder)
+        assert not hasattr(coder, "device")
+        rng = np.random.default_rng(4)
+        data = rng.integers(0, 256, (10, 64), np.uint8)
+        assert coder.encode_array(data).shape == (4, 64)

@@ -11,9 +11,10 @@ parallel/batcher.py).
    bytes API;
 2. parallel/mesh: the probe's cache and the classify_failure vocabulary;
 3. EcBatchScheduler and BatchCoder, ported from tests/test_mesh_batcher.py
-   (the cases that need no server, repair queue or LRC): coalescing and
+   (the cases that need no server or repair queue): coalescing and
    demux, odd columns, QoS ordering, routing of short jobs, a mesh that
-   fails mid-run draining through the CPU, stop() draining, the facade;
+   fails mid-run draining through the CPU, stop() draining, the facade,
+   and the LRC facade with RS and LRC jobs in one drain;
 4. the facade driving the port's pipelined encode and rebuild of volumes
    the JAX package wrote, concurrently through one scheduler, against the
    JAX pipelines with the JAX BatchCoder.
@@ -32,6 +33,7 @@ import pytest
 import torch
 
 from seaweedfs_tpu.models.coder import RSScheme as JRSScheme
+from seaweedfs_tpu.ops.lrc import LrcCoder as JLrcCoder
 from seaweedfs_tpu.ops.rs_cpu import CpuCoder as JCpuCoder
 from seaweedfs_tpu.ops.rs_mesh import MeshCoder as JMeshCoder
 from seaweedfs_tpu.parallel import batcher as jbatcher
@@ -467,8 +469,124 @@ def test_batch_coder_other_rs_scheme_rides_the_per_job_matrix_path():
         assert np.array_equal(bc.encode_array(d), want)
         assert sched.stats()["mesh_batches"] == 1
         assert sched.stats()["cpu_batches"] == 0
-        with pytest.raises(ValueError, match="LRC"):
-            BatchCoder(sched, LrcScheme())
+        # an LRC facade on the same scheduler rides the same path
+        lbc = BatchCoder(sched, LrcScheme())
+        assert np.array_equal(lbc.encode_array(d),
+                              JLrcCoder().encode_array(d))
+        assert sched.stats()["mesh_batches"] == 2
+    finally:
+        sched.stop()
+
+
+# ------------------------------------------- the LRC facade (ported from
+# tests/test_mesh_batcher.py:269-356)
+
+def test_mixed_rs_lrc_batch_drain_matches_jax():
+    """RS and LRC jobs in one coalescing window on a mesh of CPU lanes:
+    every future demuxes exactly its own rows, an RS and an LRC encode of
+    one shape share one launch with a matrix per job, and an LRC
+    group-local rebuild (5 source rows, not k) routes to the CPU coder
+    without benching the mesh."""
+    jlrc = JLrcCoder()
+    launches = []
+    real = rs_cuda.gf_apply_batch
+
+    def recorded(mats, data, out=None):
+        launches.append(mats)
+        return real(mats, data, out)
+
+    sched = _cpu_scheduler(window_s=0.3)
+    try:
+        rs_data = [_batch(1, 1024, seed=30 + i)[0] for i in range(3)]
+        lrc_data = [_batch(1, 1024, seed=40 + i)[0] for i in range(3)]
+        shards = jlrc.encode([lrc_data[0][i].tobytes() for i in range(K)])
+        full = [np.frombuffer(s, dtype=np.uint8) for s in shards]
+        src_sids, mat = jlrc.plan_rebuild(
+            [s for s in range(TOTAL) if s != 2], [2])
+        assert len(src_sids) == 5  # group-local: 5 reads, not k=10
+        rs_cuda.gf_apply_batch = recorded
+        try:
+            futs = []
+            for rd, ld in zip(rs_data, lrc_data):
+                futs.append(("rs", rd, sched.submit_encode(rd)))
+                futs.append(("lrc", ld,
+                             sched.submit_encode(ld, mat=jlrc._parity)))
+            rf = sched.submit_rebuild(
+                np.stack([full[s] for s in src_sids]), mat)
+            for fam, d, f in futs:
+                want = JCPU.encode_array(d) if fam == "rs" \
+                    else jlrc.encode_array(d)
+                assert np.array_equal(f.result(timeout=30), want), fam
+            assert np.array_equal(rf.result(timeout=30)[0], full[2])
+        finally:
+            rs_cuda.gf_apply_batch = real
+        st = sched.stats()
+        assert st["jobs_total"] == 7
+        assert st["mesh_batches"] == 1 and st["cpu_batches"] == 1
+        assert st["coder_fallbacks"] == 0  # narrow rebuild != mesh fault
+        assert st["mesh_healthy"] is True
+        # one launch per lane, each carrying a matrix per job
+        assert len(launches) == 2
+        rs_par = JCPU.encode_array(np.eye(K, dtype=np.uint8))
+        seen = {bytes(np.ascontiguousarray(m).tobytes())
+                for mats in launches for m in mats}
+        assert bytes(np.ascontiguousarray(rs_par).tobytes()) in seen
+        assert bytes(np.ascontiguousarray(jlrc._parity).tobytes()) in seen
+    finally:
+        sched.stop()
+
+
+def test_mixed_drain_survives_mesh_loss_via_cpu():
+    """Mixed batch + mesh failure: both families drain through the CPU
+    fallback byte-identically."""
+    jlrc = JLrcCoder()
+    sched = EcBatchScheduler(mesh_coder=_Boom(), window_s=0.02)
+    try:
+        rd = _batch(1, 776, seed=50)[0]
+        ld = _batch(1, 776, seed=51)[0]
+        f1 = sched.submit_encode(rd)
+        f2 = sched.submit_encode(ld, mat=jlrc._parity)
+        assert np.array_equal(f1.result(timeout=30), JCPU.encode_array(rd))
+        assert np.array_equal(f2.result(timeout=30), jlrc.encode_array(ld))
+        assert sched.coder_fallbacks >= 1
+    finally:
+        sched.stop()
+
+
+@pytest.mark.parametrize("lost", [(7,), (2, 12), (0, 5, 11, 13)])
+def test_lrc_batch_coder_facade_shares_scheduler(lost):
+    """One scheduler serves two facades, RS and LRC, each encoding under
+    its own code and reconstructing through its own plan (a plan's
+    sources, not the first k present), against the JAX LrcCoder."""
+    jlrc = JLrcCoder()
+    sched = _cpu_scheduler(window_s=0.005)
+    try:
+        rs_bc = BatchCoder(sched)
+        lrc_bc = BatchCoder(sched, LrcScheme())
+        assert lrc_bc.scheme.total_shards == TOTAL
+        rng = np.random.default_rng(52)
+        shards = [rng.integers(0, 256, 600, dtype=np.uint8).tobytes()
+                  for _ in range(K)]
+        assert [bytes(s) for s in rs_bc.encode(shards)] == \
+            [bytes(s) for s in JCPU.encode(shards)]
+        full = lrc_bc.encode(shards)
+        assert [bytes(s) for s in full] == \
+            [bytes(s) for s in jlrc.encode(shards)]
+        holes = [s if i not in lost else None for i, s in enumerate(full)]
+        assert [bytes(s) for s in lrc_bc.reconstruct(holes)] == \
+            [bytes(s) for s in jlrc.reconstruct(holes)]
+        got = lrc_bc.reconstruct_data(holes)
+        want = jlrc.reconstruct_data(holes)
+        assert [None if s is None else bytes(s) for s in got] == \
+            [None if s is None else bytes(s) for s in want]
+        st = sched.stats()
+        assert st["coder_fallbacks"] == 0
+        # a plan that reads fewer than k sources (a single-group loss reads
+        # 5) is a cpu batch, not a fallback
+        present = [i for i in range(TOTAL) if i not in lost]
+        plans = [jlrc.plan_rebuild(present, list(lost)),
+                 jlrc.plan_rebuild(present, [i for i in lost if i < K])]
+        assert st["cpu_batches"] == sum(len(p[0]) < K for p in plans)
     finally:
         sched.stop()
 
