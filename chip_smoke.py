@@ -87,6 +87,25 @@ Phases, each printing one JSON line:
                  the host for LRC and recover on K1 for RS; one block
                  through the LRC facade (a CPU batch, no fallback); {2,12}
                  lost and rebuilt on the facade through K1's batch entry
+  19. server     the volume server's EC plane over HTTP (the port's
+                 http_call; the master an address where nothing listens):
+                 a VolumeServer on the card allocates a volume, takes
+                 --volume-mb of seeded needles as raw POSTs and serves
+                 every one back (zero-copy GETs); mark_readonly,
+                 /admin/ec/generate (K1, one launch per batch; the 14
+                 shards sha256-equal to CpuCoderMT's), mount, delete the
+                 volume; every needle GET from the EC volume; shards
+                 {0,5,11,13} unmounted and deleted; every needle GET again
+                 on 1 and on 16 client threads (one K1 launch per
+                 recovered interval) and 64 seeded Range GETs across a lost
+                 shard; /admin/ec/rebuild (sha256-equal); a data and a
+                 parity shard byte flipped in two row groups, /admin/scrub
+                 names exactly those (K1: one encode per row group plus the
+                 leave-one-out search), undone, a clean scrub; /metrics and
+                 /admin/cache. Then server_batcher: a second server with
+                 ec_batcher=True generates and rebuilds a volume of
+                 --alt-volume-mb on K1's batch entry (no CPU batch, no
+                 fallback, sha256-equal)
 Then the memory line, the kernel summary line, the `nvidia-smi` line, and
 the result line {"ok": true, "device": {...}} last. Each path phase is
 driven with every kernel entry's launch counter set to 0 just before it
@@ -692,7 +711,9 @@ def make_volume(work: str, volume_mb: int, seed: int, vid: int = 1):
     off = 0
     mv = memoryview(blob)
     for nid, cookie, size in zip(ids, cookies, sizes):
-        data = mv[off:off + size]
+        # bytes, not a memoryview slice: a read-back check against a
+        # memoryview compares element by element, several ms a needle
+        data = bytes(mv[off:off + size])
         off += size
         vol.write_needle(Needle(id=nid, cookie=cookie, data=data))
         payloads[nid] = (cookie, data)
@@ -1727,6 +1748,417 @@ def lrc_volume(work: str, volume_mb: int, seed: int, counts: PathCounts,
                  "smoke's time limit")
 
 
+def _dead_master() -> str:
+    """host:port of a local port that nothing listens on (bound, then
+    closed): the server's master calls fail at once with a refusal."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{s.getsockname()[1]}"
+
+
+def _vs_json(url: str, path: str, body=None, method: str = "POST"):
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+    return http_json(method, f"http://{url}{path}", body, timeout=600)
+
+
+def _upload_volume(url: str, vid: int, volume_mb: int, seed: int):
+    """Allocate volume `vid` on the server at `url` and upload needles of
+    1 KiB-4 MiB seeded random payload, each one raw POST /<vid>,<fid>,
+    until the payload reaches `volume_mb` MiB. Returns ({nid: (cookie,
+    data)}, wall seconds of the uploads); each payload is its own bytes
+    object, so checking a body against it is one memcmp (a memoryview
+    slice compares element by element)."""
+    import numpy as np
+    from seaweedfs_tpu_torch.storage.file_id import format_needle_id_cookie
+    from seaweedfs_tpu_torch.utils.httpd import http_call
+    _vs_json(url, "/admin/allocate_volume", {"volume_id": vid})
+    rng = np.random.default_rng(seed)
+    target = volume_mb << 20
+    sizes = []
+    while sum(sizes) < target:
+        sizes.append(int(rng.integers(1 << 10, (4 << 20) + 1)))
+    blob = rng.bytes(sum(sizes))
+    ids = (rng.permutation(len(sizes)) + 1).tolist()
+    cookies = rng.integers(0, 1 << 32, len(sizes)).tolist()
+    payloads = {}
+    mv = memoryview(blob)
+    off = 0
+    t0 = time.monotonic()
+    for nid, cookie, size in zip(ids, cookies, sizes):
+        data = bytes(mv[off:off + size])
+        off += size
+        status, body, _ = http_call(
+            "POST", f"http://{url}/{vid},"
+            f"{format_needle_id_cookie(nid, cookie)}", body=data,
+            timeout=120)
+        if status >= 300:
+            raise AssertionError(f"upload of {nid:x}: {status} {body[:200]}")
+        payloads[nid] = (cookie, data)
+    return payloads, time.monotonic() - t0
+
+
+def _get_all(url: str, vid: int, payloads: dict, threads: int = 1,
+             nids=None) -> tuple[float, list[float]]:
+    """GET every needle (or `nids`) on `threads` client threads and check
+    each body against its payload; returns (wall seconds, per-GET
+    seconds)."""
+    from seaweedfs_tpu_torch.storage.file_id import format_needle_id_cookie
+    from seaweedfs_tpu_torch.utils.httpd import http_call
+    nids = sorted(payloads) if nids is None else nids
+    took: list[float] = []
+
+    def get(part):
+        for nid in part:
+            cookie, data = payloads[nid]
+            t0 = time.perf_counter()
+            status, body, _ = http_call(
+                "GET", f"http://{url}/{vid},"
+                f"{format_needle_id_cookie(nid, cookie)}", timeout=120)
+            took.append(time.perf_counter() - t0)
+            if status != 200 or body != data:
+                raise AssertionError(f"GET {vid},{nid:x}: {status}, "
+                                     f"{len(body)} of {len(data)} bytes")
+
+    t0 = time.monotonic()
+    if threads == 1:
+        get(nids)
+    else:
+        _run_threads([(get, (nids[i::threads],), {})
+                      for i in range(threads)])
+    return time.monotonic() - t0, took
+
+
+def _encode_batches(dat_size: int, k: int) -> int:
+    """Batches (one coder call each) of the server's EC encode of a .dat
+    of `dat_size` bytes."""
+    from seaweedfs_tpu_torch.storage.erasure_coding import encoder, layout
+    return sum(1 for _ in layout.iter_encode_batches(
+        dat_size, layout.LARGE_BLOCK_SIZE, layout.SMALL_BLOCK_SIZE,
+        encoder.DEFAULT_BATCH_SIZE, k))
+
+
+def _flip(path: str, offset: int) -> None:
+    """Invert one byte of a file in place (twice restores it)."""
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        b = f.read(1)
+        f.seek(offset)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def _timed_attrs(obj, names) -> dict:
+    """Wrap each callable attribute `name` of `obj` to add up its calls
+    and seconds; returns {name: {"calls", "seconds"}} (live)."""
+    stats = {}
+    for name in names:
+        fn = getattr(obj, name)
+        st = stats[name] = {"calls": 0, "seconds": 0.0}
+
+        def timed(*a, fn=fn, st=st, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                st["calls"] += 1
+                st["seconds"] += time.perf_counter() - t0
+
+        setattr(obj, name, timed)
+    return stats
+
+
+def _step(nbytes: int, wall: float, **extra) -> dict:
+    """One server step: wall seconds and MB/s of `nbytes`."""
+    return {"seconds": wall, "MBps": nbytes / wall / 1e6, **extra}
+
+
+def server_phase(work: str, volume_mb: int, batch_volume_mb: int,
+                 seed: int, counts: PathCounts,
+                 batch_counts: PathCounts) -> None:
+    """19. The volume server's EC plane on the card, driven over HTTP with
+    the port's own http_call, the way the shell's ec.encode and a client
+    call it. The master is an address where nothing listens."""
+    import numpy as np
+    from seaweedfs_tpu_torch.ops.rs_cpu import CpuCoderMT
+    from seaweedfs_tpu_torch.ops.rs_torch import TorchCoder
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage.erasure_coding import encoder, layout
+    from seaweedfs_tpu_torch.storage.file_id import format_needle_id_cookie
+    from seaweedfs_tpu_torch.utils.httpd import http_call
+    vid, total = 7, layout.TOTAL_SHARDS_COUNT
+    d = os.path.join(work, "server")
+    os.makedirs(d)
+    vs = VolumeServer([d], _dead_master(), scrub_rate_mbps=0,
+                      scrub_interval_s=0)
+    steps: dict = {}
+    launches: dict = {}
+    try:
+        vs.start()
+        if not isinstance(vs.store.coder, TorchCoder) or \
+                vs.store.coder.device.type != "cuda":
+            raise AssertionError(f"the server took {vs.store.coder}")
+        url = vs.url
+        # 1. upload, then GET every needle from the healthy volume
+        payloads, up_s = _upload_volume(url, vid, volume_mb, seed + 19)
+        payload_bytes = sum(len(v) for _, v in payloads.values())
+        steps["upload"] = _step(payload_bytes, up_s,
+                                needles=len(payloads))
+        counts.start()
+        wall, took = _get_all(url, vid, payloads)
+        if any(counts.now().values()):
+            raise AssertionError(f"healthy GETs launched {counts.now()}")
+        steps["get_healthy"] = _step(payload_bytes, wall,
+                                     **_ms_stats(took))
+        # 2. mark_readonly, generate, check the 14 shards, mount, delete
+        _vs_json(url, "/admin/mark_readonly",
+                 {"volume_id": vid, "read_only": True})
+        base = os.path.join(d, str(vid))
+        dat_size = os.path.getsize(base + ".dat")
+        counts.start()
+        t0 = time.monotonic()
+        _vs_json(url, "/admin/ec/generate",
+                 {"volume_id": vid, "collection": "", "pipelined": True})
+        wall = time.monotonic() - t0
+        batches = _encode_batches(dat_size, 10)
+        launches["generate"] = counts.read("server", "gf_apply", batches)
+        steps["generate"] = _step(dat_size, wall,
+                                  batches=batches)
+        shard_sha = [sha256_file(base + layout.shard_ext(i))
+                     for i in range(total)]
+        if shard_sha != cpu_shard_sha(base, dat_size, CpuCoderMT()):
+            raise AssertionError("generated shards differ from CpuCoderMT's")
+        _vs_json(url, "/admin/ec/mount", {"volume_id": vid, "collection": "",
+                                          "shard_ids": list(range(total))})
+        _vs_json(url, "/admin/delete_volume", {"volume_id": vid})
+        if os.path.exists(base + ".dat"):
+            raise AssertionError("delete_volume left the .dat")
+        # 3. GETs from the EC volume: whole, then with 4 shards lost
+        counts.start()
+        wall, took = _get_all(url, vid, payloads)
+        if any(counts.now().values()):
+            raise AssertionError(f"EC GETs launched {counts.now()}")
+        steps["get_ec"] = _step(payload_bytes, wall,
+                                **_ms_stats(took))
+        _vs_json(url, "/admin/ec/unmount",
+                 {"volume_id": vid, "shard_ids": list(LOSS)})
+        _vs_json(url, "/admin/ec/delete_shards",
+                 {"volume_id": vid, "collection": "",
+                  "shard_ids": list(LOSS)})
+        ev = vs.store.find_ec_volume(vid)
+        lost_iv = _lost_intervals(ev, payloads, LOSS)
+        # what the dead master costs: each lost interval first asks it
+        # where the shard lives (refused) before reconstructing
+        lookups = _timed_attrs(vs.store, ("remote_shard_reader",
+                                          "shard_locations"))
+        for name, threads in (("get_degraded_1", 1),
+                              ("get_degraded_16", 16)):
+            before = vs.store.ec_recover_stats["generic"]
+            for v in lookups.values():
+                v.update(calls=0, seconds=0.0)
+            counts.start()
+            wall, took = _get_all(url, vid, payloads, threads=threads)
+            recovered = vs.store.ec_recover_stats["generic"] - before
+            launches[name] = counts.read("server", "gf_apply", recovered)
+            steps[name] = _step(payload_bytes, wall,
+                                recovered_intervals=recovered,
+                                lost_intervals=lost_iv,
+                                dead_master_lookups={
+                                    k: dict(v) for k, v in lookups.items()},
+                                **_ms_stats(took))
+        # seeded Range GETs of needles that cross a lost shard
+        rng = np.random.default_rng(seed + 19)
+        crossing = sorted(
+            nid for nid in payloads
+            if any(iv.to_shard_id_and_offset(
+                layout.LARGE_BLOCK_SIZE, layout.SMALL_BLOCK_SIZE,
+                ev.data_shards)[0] in LOSS
+                for iv in ev.locate_needle(nid)[0]))
+        before = vs.store.ec_recover_stats["generic"]
+        counts.start()
+        t0 = time.monotonic()
+        range_bytes = 0
+        for i in rng.integers(0, len(crossing), 64):
+            nid = crossing[int(i)]
+            cookie, data = payloads[nid]
+            lo = int(rng.integers(0, len(data)))
+            ln = int(rng.integers(1, len(data) - lo + 1))
+            status, body, _ = http_call(
+                "GET", f"http://{url}/{vid},"
+                f"{format_needle_id_cookie(nid, cookie)}",
+                headers={"Range": f"bytes={lo}-{lo + ln - 1}"}, timeout=120)
+            if status != 206 or body != data[lo:lo + ln]:
+                raise AssertionError(f"Range GET {nid:x} {lo}+{ln}: "
+                                     f"{status}, {len(body)} bytes")
+            range_bytes += ln
+        wall = time.monotonic() - t0
+        recovered = vs.store.ec_recover_stats["generic"] - before
+        if recovered == 0:
+            raise AssertionError("no Range GET reconstructed an interval")
+        launches["get_ranges"] = counts.read("server", "gf_apply", recovered)
+        steps["get_ranges"] = _step(range_bytes, wall, ranges=64,
+                                    recovered_intervals=recovered)
+        # 4. rebuild the lost shards, check and mount them
+        shard_size = os.path.getsize(base + layout.shard_ext(1))
+        counts.start()
+        t0 = time.monotonic()
+        out = _vs_json(url, "/admin/ec/rebuild", {"volume_id": vid})
+        wall = time.monotonic() - t0
+        batches = -(-shard_size // encoder.DEFAULT_BATCH_SIZE)
+        launches["rebuild"] = counts.read("server", "gf_apply", batches)
+        if sorted(out["rebuilt_shard_ids"]) != list(LOSS):
+            raise AssertionError(f"rebuild answered {out}")
+        for i in LOSS:
+            if sha256_file(base + layout.shard_ext(i)) != shard_sha[i]:
+                raise AssertionError(f"rebuilt shard {i} differs")
+        steps["rebuild"] = _step(shard_size * len(LOSS), wall,
+                                 batches=batches)
+        _vs_json(url, "/admin/ec/mount", {"volume_id": vid, "collection": "",
+                                          "shard_ids": list(LOSS)})
+        # 5. scrub: a data shard and, in another row group, a parity shard
+        # flipped; exactly those named; after the undo, a clean pass
+        chunk = vs.scrubber.ec_chunk_bytes
+        groups = -(-shard_size // chunk)
+        g_data, g_par = (int(g) for g in rng.choice(groups, 2, replace=False))
+        data_sid, parity_sid = 2, 12
+        flips = {(data_sid, g_data * chunk), (parity_sid, g_par * chunk)}
+        flipped = [(sid, off + int(rng.integers(
+            0, min(chunk, shard_size - off)))) for sid, off in sorted(flips)]
+        for sid, at in flipped:
+            _flip(base + layout.shard_ext(sid), at)
+        counts.start()
+        t0 = time.monotonic()
+        dirty = _vs_json(url, "/admin/scrub", {"volume_id": vid})
+        wall = time.monotonic() - t0
+        named = {(c["shard_ids"][0], c["offset"])
+                 for c in dirty["corruptions"] if c["type"] == "ec_shard"}
+        if named != flips or len(dirty["corruptions"]) != 2:
+            raise AssertionError(f"scrub named {dirty['corruptions']}, "
+                                 f"flipped {sorted(flips)}")
+        # one encode per group; in the data shard's group the leave-one-out
+        # search tries shards 0..data_sid, a reconstruct and an encode each
+        launches["scrub_dirty"] = counts.read(
+            "server", "gf_apply", groups + 2 * (data_sid + 1))
+        steps["scrub_dirty"] = _step(dirty["bytes"], wall,
+                                     groups=groups)
+        for sid, at in flipped:  # undo
+            _flip(base + layout.shard_ext(sid), at)
+        counts.start()
+        t0 = time.monotonic()
+        clean = _vs_json(url, "/admin/scrub", {"volume_id": vid})
+        wall = time.monotonic() - t0
+        if clean["corruptions"]:
+            raise AssertionError(f"clean scrub: {clean['corruptions']}")
+        launches["scrub_clean"] = counts.read("server", "gf_apply", groups)
+        steps["scrub_clean"] = _step(clean["bytes"], wall,
+                                     groups=groups)
+        status, metrics, _ = http_call("GET", f"http://{url}/metrics")
+        text = metrics.decode()
+        if status != 200 or "volumeServer_request_total" not in text:
+            raise AssertionError("/metrics lacks volumeServer_request_total")
+        requests = {ln.split('type="', 1)[1].split('"', 1)[0]:
+                    float(ln.rsplit(" ", 1)[1])
+                    for ln in text.splitlines()
+                    if "volumeServer_request_total{" in ln}
+        zero_copy = requests.get("read_zero_copy", 0)
+        eligible = sum(len(v) >= vs.zero_copy_min
+                       for _, v in payloads.values())
+        if zero_copy != eligible:
+            raise AssertionError(f"{zero_copy} zero-copy GETs, {eligible} "
+                                 "needles eligible")
+        cache = _vs_json(url, "/admin/cache", method="GET")
+    finally:
+        vs.stop()
+    emit("server", volume_mb=volume_mb, needles=len(payloads),
+         payload_bytes=payload_bytes, dat_bytes=dat_size, lost=list(LOSS),
+         master="nothing listening", steps=steps, launches=launches,
+         scrub_corruptions=dirty["corruptions"],
+         cache={k: cache.get(k) for k in ("hits", "misses", "inserts",
+                                          "rejects", "items", "bytes")},
+         metrics_request_total=requests, zero_copy_gets=zero_copy,
+         shards_sha256_equal_to_cpu=total, rebuilt_sha256_equal=True,
+         bodies_equal=True)
+    server_batcher(work, batch_volume_mb, seed, batch_counts)
+
+
+def server_batcher(work: str, volume_mb: int, seed: int,
+                   counts: PathCounts) -> None:
+    """19b. A second server with ec_batcher=True: a volume of `volume_mb`
+    generated and, with shards {0,5,11,13} lost, rebuilt through its
+    EcBatchScheduler on the card (K1's batch entry, one launch per mesh
+    batch, no CPU batch, no fallback)."""
+    from seaweedfs_tpu_torch.ops.rs_cpu import CpuCoderMT
+    from seaweedfs_tpu_torch.parallel.batcher import BatchCoder
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage.erasure_coding import layout
+    vid, total = 8, layout.TOTAL_SHARDS_COUNT
+    d = os.path.join(work, "server_batcher")
+    os.makedirs(d)
+    vs = VolumeServer([d], _dead_master(), ec_batcher=True,
+                      scrub_rate_mbps=0, scrub_interval_s=0)
+    steps: dict = {}
+    launches: dict = {}
+    try:
+        vs.start()
+        if not isinstance(vs.store.coder, BatchCoder):
+            raise AssertionError(f"ec_batcher server took {vs.store.coder}")
+        url = vs.url
+        payloads, up_s = _upload_volume(url, vid, volume_mb, seed + 20)
+        del payloads
+        _vs_json(url, "/admin/mark_readonly",
+                 {"volume_id": vid, "read_only": True})
+        base = os.path.join(d, str(vid))
+        dat_size = os.path.getsize(base + ".dat")
+        for name, path, body in (
+                ("generate", "/admin/ec/generate",
+                 {"volume_id": vid, "collection": "", "pipelined": True}),
+                ("rebuild", "/admin/ec/rebuild", {"volume_id": vid})):
+            # MB/s of .dat in (generate), of shards rebuilt (rebuild)
+            if name == "rebuild":
+                shard_sha = [sha256_file(base + layout.shard_ext(i))
+                             for i in range(total)]
+                if shard_sha != cpu_shard_sha(base, dat_size, CpuCoderMT()):
+                    raise AssertionError("ec_batcher shards differ from "
+                                         "CpuCoderMT's")
+                _vs_json(url, "/admin/ec/mount",
+                         {"volume_id": vid, "collection": "",
+                          "shard_ids": list(range(total))})
+                _vs_json(url, "/admin/delete_volume", {"volume_id": vid})
+                _vs_json(url, "/admin/ec/unmount",
+                         {"volume_id": vid, "shard_ids": list(LOSS)})
+                _vs_json(url, "/admin/ec/delete_shards",
+                         {"volume_id": vid, "collection": "",
+                          "shard_ids": list(LOSS)})
+            before = _vs_json(url, "/admin/ec/batcher", method="GET")
+            counts.start()
+            t0 = time.monotonic()
+            out = _vs_json(url, path, body)
+            wall = time.monotonic() - t0
+            st = _vs_json(url, "/admin/ec/batcher", method="GET")
+            batches = st["mesh_batches"] - before["mesh_batches"]
+            launches[name] = counts.read("server_batcher", "gf_apply_batch",
+                                         batches)
+            nbytes = dat_size if name == "generate" else len(LOSS) * \
+                os.path.getsize(base + layout.shard_ext(1))
+            steps[name] = _step(nbytes, wall, mesh_batches=batches,
+                                jobs=st["jobs_total"] - before["jobs_total"])
+        if sorted(out["rebuilt_shard_ids"]) != list(LOSS):
+            raise AssertionError(f"rebuild answered {out}")
+        for i in LOSS:
+            if sha256_file(base + layout.shard_ext(i)) != shard_sha[i]:
+                raise AssertionError(f"rebuilt shard {i} differs")
+    finally:
+        vs.stop()
+    if not st["enabled"] or st["jobs_total"] == 0 or \
+            st["coder_fallbacks"] or st["cpu_batches"]:
+        raise AssertionError(f"/admin/ec/batcher: {st}")
+    emit("server_batcher", volume_mb=volume_mb, dat_bytes=dat_size,
+         upload_MBps=dat_size / up_s / 1e6, steps=steps, launches=launches,
+         jobs=st["jobs_total"], mesh_batches=st["mesh_batches"],
+         cpu_batches=st["cpu_batches"], coder_fallbacks=st["coder_fallbacks"],
+         max_coalesced=st["max_coalesced"],
+         shards_sha256_equal_to_cpu=total, rebuilt_sha256_equal=True)
+
+
 def kernel_entry(name: str, source: str, replaces: str, counts: PathCounts,
                  worst: int, row: dict, timing: list[dict]) -> dict:
     launches = counts.total(name)
@@ -1829,6 +2261,8 @@ def main() -> int:
                       args.seed, batch_counts)
         batch_encode_phase(args.seed, batch_counts,
                            timing_batch[0]["gf_apply_batch_ms"])
+        server_phase(work, args.volume_mb, args.alt_volume_mb, args.seed,
+                     counts, batch_counts)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit("memory", max_memory_allocated=torch.cuda.max_memory_allocated(0),

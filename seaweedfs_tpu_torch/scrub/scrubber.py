@@ -1,0 +1,512 @@
+"""Background scrubber: re-reads data at rest and reports corruption.
+
+A volume-server daemon thread walks every mounted .dat needle log
+(verifying each record's CRC32-C via utils/crc, the same checksum the
+write path stamps) and every mounted EC volume (re-computing RS(10,4)
+parity over row groups with the store's coder and comparing it to the
+parity shards on disk, so the GF(256) math cross-checks itself).
+
+Reads are throttled through a TokenBucket in bytes/sec so foreground
+traffic is unaffected (reference: the repair-rate discussions in the
+Facebook warehouse study, arxiv 1309.0186 — scrub/repair I/O must be a
+bounded fraction of disk bandwidth). Per-volume byte cursors persist in
+<location>/scrub_cursor.json so a restarted server resumes mid-volume
+instead of starting over.
+
+Corruption reports go to report_fn (the volume server POSTs them to the
+master's /scrub/report, which feeds the repair queue).
+
+The port's copy of seaweedfs_tpu/scrub/scrubber.py, the same code; it imports
+nothing of that package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+from typing import Callable, Optional
+
+import numpy as np
+
+from seaweedfs_tpu_torch.qos import BACKGROUND
+from seaweedfs_tpu_torch.utils import clockctl, profiler
+from seaweedfs_tpu_torch.storage import types as t
+from seaweedfs_tpu_torch.storage.needle import CrcError, Needle
+from seaweedfs_tpu_torch.storage.super_block import SuperBlock
+from seaweedfs_tpu_torch.utils import glog
+from seaweedfs_tpu_torch.utils.limiter import TokenBucket
+
+CURSOR_FILE = "scrub_cursor.json"
+
+
+class Scrubber:
+    def __init__(self, store, rate_bytes_per_sec: float = 8 * 1024 * 1024,
+                 interval_s: float = 600.0,
+                 report_fn: Optional[Callable[[dict], None]] = None,
+                 metrics=None, ec_chunk_bytes: int = 1024 * 1024,
+                 ec_sample_every: int = 1,
+                 cursor_flush_bytes: int = 8 * 1024 * 1024,
+                 pressure_fn: Optional[Callable[[], float]] = None):
+        """ec_sample_every=N checks every Nth row group of an EC volume
+        per pass (1 = full coverage); successive passes rotate the
+        sampled groups so N passes cover everything.
+
+        pressure_fn (the QoS governor's pressure(), [0,1]) makes the
+        scrubber yield to foreground load: the effective read rate is
+        base * (1 - 0.9*pressure), floored at 10% of base so a pass
+        always finishes eventually. No effect when unthrottled
+        (rate<=0) or when no fn is wired."""
+        self.store = store
+        self.interval_s = interval_s
+        self.report_fn = report_fn
+        self.pressure_fn = pressure_fn
+        self._base_rate = float(rate_bytes_per_sec)
+        self._pressure = 0.0
+        self._pressure_checked = 0.0
+        self.ec_chunk_bytes = ec_chunk_bytes
+        self.ec_sample_every = max(1, ec_sample_every)
+        self.cursor_flush_bytes = cursor_flush_bytes
+        self.bucket = TokenBucket(rate_bytes_per_sec,
+                                  capacity=max(ec_chunk_bytes,
+                                               256 * 1024))
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._lock = threading.Lock()
+        # totals + in-progress position for /admin/scrub/status and /ui
+        self.bytes_scrubbed = 0
+        self.corruptions_found = 0
+        self.passes_completed = 0
+        self.last_pass_s = 0.0
+        self.last_pass_at = 0.0
+        self.current: Optional[dict] = None
+        self._pass_index = 0
+        if metrics is not None:
+            self._m_bytes = metrics.counter(
+                "volumeServer", "scrub_bytes_total", "bytes scrubbed")
+            self._m_corrupt = metrics.counter(
+                "volumeServer", "scrub_corruptions_total",
+                "corruptions found by the scrubber", ("type",))
+            self._m_passes = metrics.counter(
+                "volumeServer", "scrub_passes_total",
+                "completed scrub passes")
+        else:
+            self._m_bytes = self._m_corrupt = self._m_passes = None
+
+    # ---- lifecycle ----
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._loop,
+                                        name="scrubber", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2.0)
+
+    def _loop(self) -> None:
+        # first pass only after a full interval: a freshly started
+        # server serves foreground traffic before it re-reads cold data
+        while not self._stop.wait(self.interval_s):
+            try:
+                # scope re-entry per pass: wall samples of scrub I/O
+                # land under class background / route scrub
+                with profiler.scope(cls=BACKGROUND, route="scrub"):
+                    self.run_once()
+            except Exception as e:
+                glog.warning("scrub pass failed (will retry): %s", e)
+
+    # ---- one pass ----
+    def run_once(self, volume_id: Optional[int] = None,
+                 use_cursor: bool = True) -> dict:
+        """Scrub every mounted volume and EC volume (or just volume_id).
+        Returns {"volumes": [per-volume reports], "bytes": n,
+        "corruptions": [...]}. Rate-limited unless the bucket rate<=0."""
+        t0 = clockctl.monotonic()
+        out = {"volumes": [], "bytes": 0, "corruptions": []}
+        for loc in self.store.locations:
+            cursors = self._load_cursors(loc.directory) if use_cursor \
+                else {"volumes": {}, "ec_volumes": {}}
+            for v in list(loc.volumes.values()):
+                if volume_id is not None and v.id != volume_id:
+                    continue
+                if self._stop.is_set():
+                    return out
+                try:
+                    rep = self.scrub_volume(v, loc.directory, cursors)
+                except Exception as e:
+                    rep = {"volume_id": v.id, "error": str(e)}
+                out["volumes"].append(rep)
+                out["bytes"] += rep.get("bytes", 0)
+                out["corruptions"].extend(rep.get("corruptions", []))
+            for ev in list(loc.ec_volumes.values()):
+                if volume_id is not None and ev.volume_id != volume_id:
+                    continue
+                if self._stop.is_set():
+                    return out
+                try:
+                    rep = self.scrub_ec_volume(ev, loc.directory, cursors)
+                except Exception as e:
+                    rep = {"volume_id": ev.volume_id, "ec": True,
+                           "error": str(e)}
+                out["volumes"].append(rep)
+                out["bytes"] += rep.get("bytes", 0)
+                out["corruptions"].extend(rep.get("corruptions", []))
+        with self._lock:
+            self.passes_completed += 1
+            self._pass_index += 1
+            self.last_pass_s = clockctl.monotonic() - t0
+            self.last_pass_at = clockctl.now()
+            self.current = None
+        if self._m_passes is not None:
+            self._m_passes.inc()
+        return out
+
+    # ---- .dat needle walk ----
+    def scrub_volume(self, v, directory: str, cursors: dict) -> dict:
+        v.sync()
+        dat_path = v.file_name() + ".dat"
+        size = os.path.getsize(dat_path)
+        rep = {"volume_id": v.id, "collection": v.collection,
+               "bytes": 0, "corruptions": [], "size": size}
+        with open(dat_path, "rb") as f:
+            sb = SuperBlock.parse(f.read(8 + 65536)[:8 + 65536])
+            first = (sb.block_size + t.NEEDLE_PADDING_SIZE - 1) \
+                // t.NEEDLE_PADDING_SIZE * t.NEEDLE_PADDING_SIZE
+            version = sb.version
+            offset = max(int(cursors["volumes"].get(str(v.id), 0)), first)
+            rep["start_offset"] = offset
+            unflushed = 0
+            fd = f.fileno()
+            while offset + t.NEEDLE_HEADER_SIZE <= size:
+                if self._stop.is_set():
+                    break
+                self._set_current(v.id, "volume", offset, size)
+                header = os.pread(fd, t.NEEDLE_HEADER_SIZE, offset)
+                if len(header) < t.NEEDLE_HEADER_SIZE:
+                    break
+                try:
+                    hn = Needle.parse_header(header)
+                except Exception:
+                    self._corrupt(rep, {"type": "needle_parse",
+                                        "volume_id": v.id,
+                                        "collection": v.collection,
+                                        "offset": offset})
+                    break
+                if hn.size < 0:
+                    break
+                record_len = t.get_actual_size(hn.size, version)
+                if offset + record_len > size:
+                    break
+                self._apply_pressure()
+                if not self.bucket.consume(record_len, self._stop):
+                    break
+                blob = os.pread(fd, record_len, offset)
+                try:
+                    Needle.from_bytes(blob, hn.size, version,
+                                      check_crc=True)
+                except CrcError:
+                    self._corrupt(rep, {"type": "needle_crc",
+                                        "volume_id": v.id,
+                                        "collection": v.collection,
+                                        "needle_id": hn.id,
+                                        "offset": offset})
+                except Exception:
+                    self._corrupt(rep, {"type": "needle_parse",
+                                        "volume_id": v.id,
+                                        "collection": v.collection,
+                                        "offset": offset})
+                    break
+                offset += record_len
+                rep["bytes"] += record_len
+                unflushed += record_len
+                self._account(record_len)
+                if unflushed >= self.cursor_flush_bytes:
+                    cursors["volumes"][str(v.id)] = offset
+                    self._save_cursors(directory, cursors)
+                    unflushed = 0
+        if self._stop.is_set() and offset < size:
+            cursors["volumes"][str(v.id)] = offset
+        else:
+            cursors["volumes"].pop(str(v.id), None)  # pass complete
+            rep["complete"] = True
+        self._save_cursors(directory, cursors)
+        return rep
+
+    # ---- EC shard parity re-check ----
+    def scrub_ec_volume(self, ev, directory: str, cursors: dict) -> dict:
+        # per-volume coder: an LRC volume's parity rows (group-masked
+        # locals + globals) come from its own generator, so RS and LRC
+        # volumes on one store each scrub against the right code
+        coder = self.store.coder_for(ev)
+        k = coder.scheme.data_shards
+        total = coder.scheme.total_shards
+        shard_size = ev.shard_size()
+        vid = ev.volume_id
+        rep = {"volume_id": vid, "collection": ev.collection, "ec": True,
+               "bytes": 0, "corruptions": [], "size": shard_size * total,
+               "code": type(coder.scheme).__name__}
+        present = sorted(ev.shards)
+        missing_data = [i for i in range(k) if i not in ev.shards]
+        remote_reader = getattr(self.store, "remote_partial_reader", None)
+        if missing_data and remote_reader is None:
+            # a spread deployment holds only some shards per node; local
+            # parity recompute needs all k data columns, and this store
+            # has no partial-read chain to pull the rest
+            rep["skipped"] = f"data shards not all local: {present}"
+            return rep
+        parity_present = [i for i in range(k, total) if i in ev.shards]
+        if not parity_present:
+            rep["skipped"] = "no parity shard local"
+            return rep
+        local_data = [i for i in range(k) if i in ev.shards]
+        if missing_data:
+            # remote-assisted: peers ship ONE pre-reduced column for the
+            # absent data shards (partial-read chain), costing ~1
+            # column of ingress per group instead of the k-local_data
+            # raw columns a full fetch would
+            rep["remote_assisted"] = True
+        offset = int(cursors["ec_volumes"].get(str(vid), 0))
+        if offset >= shard_size:
+            offset = 0
+        rep["start_offset"] = offset
+        group = offset // self.ec_chunk_bytes
+        unflushed = 0
+        while offset < shard_size:
+            if self._stop.is_set():
+                break
+            length = min(self.ec_chunk_bytes, shard_size - offset)
+            # sampled row groups: rotate the residue each pass so
+            # ec_sample_every passes give full coverage
+            if (group % self.ec_sample_every
+                    != self._pass_index % self.ec_sample_every):
+                offset += length
+                group += 1
+                continue
+            self._set_current(vid, "ec", offset, shard_size)
+            read_n = length * (len(local_data) + len(parity_present))
+            if missing_data:
+                # the pre-reduced remote column arrives over the wire
+                read_n += length * len(parity_present)
+            self._apply_pressure()
+            if not self.bucket.consume(read_n, self._stop):
+                break
+            rows: list = [None] * total
+            short = []
+            for sid in present:
+                data = ev.shards[sid].read_at(offset, length)
+                if len(data) != length:
+                    short.append(sid)
+                else:
+                    rows[sid] = data
+            if short:
+                self._corrupt(rep, {"type": "ec_shard",
+                                    "volume_id": vid,
+                                    "collection": ev.collection,
+                                    "shard_ids": short,
+                                    "offset": offset,
+                                    "detail": "short read (truncated)"})
+            else:
+                if missing_data:
+                    try:
+                        bad = self._check_group_remote(
+                            rows, coder, k, local_data, missing_data,
+                            parity_present, vid, offset, length,
+                            remote_reader)
+                    except RuntimeError:
+                        rep["skipped"] = "remote partial unavailable"
+                        break
+                    detail = "parity mismatch (remote-assisted)"
+                else:
+                    bad = self._check_group(rows, coder, k,
+                                            parity_present)
+                    detail = "parity mismatch"
+                if bad is not None:
+                    self._corrupt(rep, {
+                        "type": "ec_shard", "volume_id": vid,
+                        "collection": ev.collection,
+                        "shard_ids": bad if bad else
+                        list(parity_present),
+                        "offset": offset,
+                        "detail": detail})
+            offset += length
+            group += 1
+            rep["bytes"] += read_n
+            unflushed += read_n
+            self._account(read_n)
+            if unflushed >= self.cursor_flush_bytes:
+                cursors["ec_volumes"][str(vid)] = offset
+                self._save_cursors(directory, cursors)
+                unflushed = 0
+        if self._stop.is_set() and offset < shard_size:
+            cursors["ec_volumes"][str(vid)] = offset
+        else:
+            cursors["ec_volumes"].pop(str(vid), None)
+            rep["complete"] = True
+        self._save_cursors(directory, cursors)
+        return rep
+
+    def _check_group(self, rows: list, coder, k: int,
+                     parity_present: list) -> Optional[list]:
+        """Recompute parity for one row group; on mismatch identify the
+        corrupt shard. Returns None (clean), [sid] (identified), or []
+        (mismatch but unidentified / multi-shard)."""
+        data = np.stack([np.frombuffer(rows[i], dtype=np.uint8)
+                         for i in range(k)])
+        parity = coder.encode_array(data)
+        mism = [j for j in parity_present
+                if parity[j - k].tobytes() != rows[j]]
+        if not mism:
+            return None
+        if len(mism) == 1 and len(parity_present) > 1:
+            # one parity column disagrees while others agree: the
+            # disagreeing parity shard itself is the corrupt one
+            return [mism[0]]
+        # multiple parity mismatches point at a corrupt DATA shard:
+        # leave each data column out in turn, reconstruct it from the
+        # rest, and see whether the repaired group satisfies ALL parity
+        for i in range(k):
+            trial = list(rows)
+            trial[i] = None
+            try:
+                rec = coder.reconstruct(trial)
+            except ValueError:
+                # a plan that cannot be solved (too few shards, or a
+                # singular matrix: LinAlgError is a ValueError). A build,
+                # launch or CUDA fault of the card coder propagates.
+                continue
+            data2 = np.stack(
+                [np.frombuffer(rec[j] if j == i else rows[j],
+                               dtype=np.uint8) for j in range(k)])
+            parity2 = coder.encode_array(data2)
+            if all(parity2[j - k].tobytes() == rows[j]
+                   for j in parity_present):
+                return [i]
+        return []
+
+    def _check_group_remote(self, rows: list, coder, k: int,
+                            local_data: list, missing_data: list,
+                            parity_present: list, vid: int, offset: int,
+                            length: int, remote_reader) -> Optional[list]:
+        """Parity check when only SOME data columns are local: fold the
+        local columns' partial parity, pull the absent columns'
+        contribution as one pre-reduced column through the partial-read
+        chain, XOR, and compare against the local parity shards.
+        Returns None (clean) or [] (mismatch — unidentified, since
+        leave-one-out needs the full columns). Raises RuntimeError when
+        no remote contribution is obtainable (caller records skipped)."""
+        from seaweedfs_tpu_torch.ops.rs_cpu import CpuCoder, gf_partial_product
+        pmat = getattr(coder, "_parity", None)
+        if pmat is None:
+            pmat = CpuCoder(coder.scheme)._parity
+        n_rows = len(parity_present)
+        expected = np.zeros((n_rows, length), dtype=np.uint8)
+        if local_data:
+            mat_local = np.array(
+                [[pmat[j - k][i] for i in local_data]
+                 for j in parity_present], dtype=np.uint8)
+            data = np.stack([np.frombuffer(rows[i], dtype=np.uint8)
+                             for i in local_data])
+            gf_partial_product(mat_local, data, out=expected)
+        coeff_by_sid = {i: [int(pmat[j - k][i]) for j in parity_present]
+                        for i in missing_data}
+        # group-local verification: an LRC local parity's coefficient
+        # row is zero outside its own group, so absent columns that
+        # contribute nothing to every checked parity are dropped — and
+        # when none remain (only this group's parity is being checked)
+        # the scrub completes with NO remote pull at all
+        coeff_by_sid = {i: c for i, c in coeff_by_sid.items() if any(c)}
+        if coeff_by_sid:
+            remote = remote_reader(vid, coeff_by_sid, offset, length,
+                                   n_rows)
+            if remote is None:
+                raise RuntimeError("remote partial unavailable")
+            expected ^= remote
+        mism = [j for idx, j in enumerate(parity_present)
+                if expected[idx].tobytes() != rows[j]]
+        return None if not mism else []
+
+    # ---- bookkeeping ----
+    def _apply_pressure(self) -> None:
+        """Re-derive the effective bucket rate from local QoS pressure,
+        at most twice a second (called on every consume; the lookup
+        must stay off the hot path's critical cost)."""
+        if self.pressure_fn is None or self._base_rate <= 0:
+            return
+        now = clockctl.monotonic()
+        if now - self._pressure_checked < 0.5:
+            return
+        self._pressure_checked = now
+        try:
+            p = max(0.0, min(1.0, float(self.pressure_fn())))
+        except Exception:
+            return
+        if abs(p - self._pressure) < 0.01:
+            return
+        self._pressure = p
+        self.bucket.set_rate(self._base_rate * max(0.1, 1.0 - 0.9 * p))
+
+    def _corrupt(self, rep: dict, event: dict) -> None:
+        rep["corruptions"].append(event)
+        with self._lock:
+            self.corruptions_found += 1
+        if self._m_corrupt is not None:
+            self._m_corrupt.inc(event.get("type", "unknown"))
+        glog.warning("scrub: corruption %s", event)
+        if self.report_fn is not None:
+            try:
+                self.report_fn(event)
+            except Exception as e:
+                glog.warning("scrub report failed: %s", e)
+
+    def _account(self, n: int) -> None:
+        with self._lock:
+            self.bytes_scrubbed += n
+        if self._m_bytes is not None:
+            self._m_bytes.inc(amount=n)
+
+    def _set_current(self, vid: int, kind: str, offset: int,
+                     size: int) -> None:
+        with self._lock:
+            self.current = {"volume_id": vid, "kind": kind,
+                            "offset": offset, "size": size}
+
+    def status(self) -> dict:
+        with self._lock:
+            return {
+                "running": self._thread is not None
+                and self._thread.is_alive(),
+                "rate_bytes_per_sec": self.bucket.rate,
+                "base_rate_bytes_per_sec": self._base_rate,
+                "qos_pressure": round(self._pressure, 4),
+                "interval_s": self.interval_s,
+                "bytes_scrubbed": self.bytes_scrubbed,
+                "corruptions_found": self.corruptions_found,
+                "passes_completed": self.passes_completed,
+                "last_pass_s": round(self.last_pass_s, 3),
+                "last_pass_at": self.last_pass_at,
+                "current": dict(self.current) if self.current else None,
+            }
+
+    # ---- cursor persistence ----
+    def _cursor_path(self, directory: str) -> str:
+        return os.path.join(directory, CURSOR_FILE)
+
+    def _load_cursors(self, directory: str) -> dict:
+        try:
+            with open(self._cursor_path(directory)) as f:
+                c = json.load(f)
+            return {"volumes": dict(c.get("volumes", {})),
+                    "ec_volumes": dict(c.get("ec_volumes", {}))}
+        except (OSError, ValueError):
+            return {"volumes": {}, "ec_volumes": {}}
+
+    def _save_cursors(self, directory: str, cursors: dict) -> None:
+        path = self._cursor_path(directory)
+        tmp = path + ".tmp"
+        try:
+            with open(tmp, "w") as f:
+                json.dump(cursors, f)
+            os.replace(tmp, path)
+        except OSError:
+            pass

@@ -100,6 +100,12 @@ class Store:
         # similarly-healthy candidates (injected by the volume server)
         self.shard_pressure: Optional[Callable[[int], dict]] = None
         self.resilient_reads = True
+        # remote_partial_reader(vid, {sid: [coeffs]}, offset, size,
+        # n_rows) -> (n_rows, size) uint8 array | None. Injected by the
+        # volume server; lets the scrubber check parity on volumes whose
+        # data shards are spread across peers by pulling pre-reduced
+        # partial columns instead of k raw shard streams.
+        self.remote_partial_reader = None
         # Hot-needle record cache (storage/needle_cache.py), injected
         # by the volume server; None keeps every read on the raw path.
         self.needle_cache = None

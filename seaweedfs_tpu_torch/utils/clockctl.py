@@ -1,19 +1,23 @@
-"""Process-wide monotonic-clock indirection (the port of
-seaweedfs_tpu/utils/clockctl.py, its ``monotonic`` and ``install`` only).
+"""Process-wide clock indirection (the port of
+seaweedfs_tpu/utils/clockctl.py: ``monotonic``, ``now``, ``sleep``,
+``thread_time`` and ``install``).
 
-The batch scheduler reads its coalescing deadlines and cooldowns through
-``monotonic()`` instead of ``time.monotonic`` directly, so a test can put a
-virtual clock under it with ``install()``. In production nothing is
-installed and the indirection costs one module-attribute load.
+The batch scheduler, the resilience and QoS layers, the token buckets, the
+scrubber and the volume server read their timers through this module
+instead of ``time`` directly, so a test can put a virtual clock under them
+with ``install()``. In production nothing is installed and the indirection
+costs one module-attribute load.
 """
 
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
-from typing import Callable
+from typing import Callable, Optional
 
 _monotonic: Callable[[], float] = time.monotonic
+_sleep: Callable[[float], None] = time.sleep
+_now: Callable[[], float] = time.time
 
 
 def monotonic() -> float:
@@ -22,14 +26,44 @@ def monotonic() -> float:
     return _monotonic()
 
 
+def now() -> float:
+    """Behavioral wall clock (epoch seconds in production), for timestamps
+    the code later compares against itself: TTL expiry, hint ages, the
+    scrubber's last pass. Under an installed clock it follows
+    ``monotonic_fn``."""
+    return _now()
+
+
+def sleep(seconds: float) -> None:
+    """Behavioral sleep (retry backoff, token-bucket waits)."""
+    _sleep(seconds)
+
+
+def thread_time() -> float:
+    """Per-thread CPU clock, for the ledger's per-request CPU charge.
+    ``install()`` leaves it real: CPU burned under a virtual clock is
+    still real CPU."""
+    return time.thread_time()
+
+
+def _no_real_sleep(seconds: float) -> None:
+    raise RuntimeError(
+        "blocking sleep under a virtual clock — pass sleep_fn to install()")
+
+
 @contextmanager
-def install(monotonic_fn: Callable[[], float]):
-    """Install a clock override for the duration of a with-block. Nested
-    installs restore correctly (LIFO)."""
-    global _monotonic
-    prev = _monotonic
+def install(monotonic_fn: Callable[[], float],
+            sleep_fn: Optional[Callable[[float], None]] = None):
+    """Install a clock override for the duration of a with-block: both
+    ``monotonic()`` and ``now()`` read ``monotonic_fn``, and ``sleep()``
+    calls ``sleep_fn`` (raising when none is given). Nested installs
+    restore correctly (LIFO)."""
+    global _monotonic, _sleep, _now
+    prev = (_monotonic, _sleep, _now)
     _monotonic = monotonic_fn
+    _sleep = sleep_fn if sleep_fn is not None else _no_real_sleep
+    _now = monotonic_fn
     try:
         yield
     finally:
-        _monotonic = prev
+        _monotonic, _sleep, _now = prev

@@ -1,8 +1,12 @@
-"""Leveled logging, the part of seaweedfs_tpu/utils/glog.py the port uses:
-``warning`` lines in glog's format on stderr,
-``W0730 14:03:02.123456 140395 file.py:42] message``. The other
-severities, verbosity levels, -vmodule and log-file rotation are not
-ported.
+"""Leveled logging, the part of seaweedfs_tpu/utils/glog.py the port calls:
+the severities (``info``, ``warning``, ``error``, ``exception``), the
+verbose gate ``v`` / ``vlog`` and the per-line context hook that tracing
+registers. Lines go to stderr in glog's format,
+``I0730 14:03:02.123456 140395 file.py:42] message``.
+
+The port has no CLI, so the flag surface (-v, -vmodule, log-file
+rotation) is not ported: the verbosity stays 0 and v-level lines are
+dropped. It imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -12,9 +16,21 @@ import sys
 import threading
 import time
 
-WARNING = 1
+INFO, WARNING, ERROR = 0, 1, 2
 _SEV_CHAR = "IWE"
+
 _lock = threading.Lock()
+_verbosity = 0
+_context_provider = None  # e.g. tracing's "[t=abcd1234] " prefix hook
+
+
+def set_context_provider(fn) -> None:
+    """Register a callable returning a per-line prefix (e.g. the active
+    trace id) inserted between the glog head and the message. Must be
+    cheap and return "" when it has nothing to add; any exception it
+    raises is swallowed."""
+    global _context_provider
+    _context_provider = fn
 
 
 def _fmt(msg: str, args: tuple) -> str:
@@ -34,6 +50,11 @@ def _emit(sev: int, msg: str, args: tuple) -> None:
             f".{int((now % 1) * 1e6):06d} {threading.get_native_id():>6d} "
             f"{os.path.basename(frame.f_code.co_filename)}:"
             f"{frame.f_lineno}] ")
+    if _context_provider is not None:
+        try:
+            head += _context_provider()
+        except Exception:
+            pass
     line = head + _fmt(msg, args) + "\n"
     with _lock:
         try:
@@ -42,5 +63,32 @@ def _emit(sev: int, msg: str, args: tuple) -> None:
             pass
 
 
+def info(msg: str, *args) -> None:
+    _emit(INFO, msg, args)
+
+
 def warning(msg: str, *args) -> None:
     _emit(WARNING, msg, args)
+
+
+def error(msg: str, *args) -> None:
+    _emit(ERROR, msg, args)
+
+
+def exception(msg: str, *args) -> None:
+    """error() plus the current exception's traceback. Args are
+    substituted BEFORE the traceback is appended — tracebacks routinely
+    contain % characters that must not reach the formatter."""
+    import traceback
+    _emit(ERROR, _fmt(msg, args) + "\n" + traceback.format_exc(), ())
+
+
+def v(level: int) -> bool:
+    """True when verbose lines at `level` are admitted."""
+    return level <= _verbosity
+
+
+def vlog(level: int, msg: str, *args) -> None:
+    """glog.V(level).Info(...) in one call."""
+    if v(level):
+        _emit(INFO, msg, args)

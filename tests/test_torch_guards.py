@@ -50,6 +50,12 @@ def test_port_and_smoke_never_import_jax_or_reference():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 17
     assert PORT / "ops" / "rs_mxu.py" in files
+    # the serving plane: the server, the scrubber, stats, qos, httpd
+    for rel in ("server/volume_server.py", "server/volume_tcp.py",
+                "scrub/scrubber.py", "stats/hotkeys.py", "stats/ledger.py",
+                "qos/governor.py", "qos/limiter.py", "utils/httpd.py",
+                "utils/tracing.py", "utils/limiter.py"):
+        assert PORT / rel in files, rel
     bad = {str(f.relative_to(REPO)): [n for n in _imported_modules(f)
                                       if _forbidden(n)]
            for f in files}
@@ -234,3 +240,59 @@ def test_store_raises_without_cuda_and_lrc_takes_no_device(no_cuda,
         rng = np.random.default_rng(4)
         data = rng.integers(0, 256, (10, 64), np.uint8)
         assert coder.encode_array(data).shape == (4, 64)
+
+
+def test_volume_server_raises_without_cuda_before_binding(no_cuda,
+                                                          monkeypatch,
+                                                          tmp_path):
+    """VolumeServer takes the card unless asked for the CPU: without a
+    CUDA device its constructor raises before any socket is bound (the
+    JAX package's server quietly takes the host coder)."""
+    from seaweedfs_tpu_torch.server import volume_server
+    bound = []
+    monkeypatch.setattr(volume_server, "HttpServer",
+                        lambda *a, **kw: bound.append(a))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        volume_server.VolumeServer([str(tmp_path / "v")], "127.0.0.1:1")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        volume_server.VolumeServer([str(tmp_path / "v")], "127.0.0.1:1",
+                                   ec_batcher=True)
+    assert bound == []
+    assert not (tmp_path / "v").exists()
+
+
+def test_scrubber_on_a_cpu_store_takes_no_cuda_path(no_cuda, tmp_path):
+    """A scrub of a CPU store's EC volume runs K1's plain version: every
+    wrapper call gets CPU tensors, nothing is built and nothing counts as
+    a launch."""
+    from seaweedfs_tpu_torch.scrub import Scrubber
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.store import Store
+    store = Store([str(tmp_path)], device="cpu")
+    store.add_volume(1)
+    rng = np.random.default_rng(5)
+    for i in range(3):
+        store.write_volume_needle(1, Needle(
+            id=i + 1, cookie=7,
+            data=rng.integers(0, 256, 50_000, np.uint8).tobytes()))
+    store.generate_ec_shards(1)
+    store.delete_volume(1)
+    store.mount_ec_shards("", 1, list(range(14)))
+    devices = []
+    real = rs_cuda.gf_apply
+
+    def spy(mat, data, out=None):
+        devices.append(data.device.type)
+        return real(mat, data, out)
+
+    before = rs_cuda.launches
+    rs_cuda.gf_apply = spy
+    try:
+        out = Scrubber(store, rate_bytes_per_sec=0).run_once()
+    finally:
+        rs_cuda.gf_apply = real
+        store.close()
+    assert not out["corruptions"]
+    assert devices and set(devices) == {"cpu"}
+    assert rs_cuda.launches == before
+    assert rs_cuda._lib is None
