@@ -106,6 +106,24 @@ Phases, each printing one JSON line:
                  ec_batcher=True generates and rebuilds a volume of
                  --alt-volume-mb on K1's batch entry (no CPU batch, no
                  fallback, sha256-equal)
+  20. cluster    the port's own cluster: its MasterServer (1024 MiB volume
+                 size limit, default repair settings), four of its
+                 VolumeServers on the card on racks r0 / r1 of dc1, its
+                 MasterClient and ShellContext. --cluster-volume-mb of
+                 seeded needles uploaded through client.operation into the
+                 one volume the master grows; ec.encode (K1 on the source,
+                 one launch per batch; the 14 spread shards sha256-equal to
+                 CpuCoderMT's); every needle GET from the holders on 1 and
+                 16 client threads; the server holding the most shards
+                 stopped and pruned; every needle GET again (one K1 launch
+                 per interval a server reconstructs); ec.rebuild (K1 on the
+                 rebuilder, sha256-equal) and a GET pass; a holder's parity
+                 shard flipped, its /admin/scrub (remote-assisted, on the
+                 host) reports it and the master's repair queue restores it
+                 (partial chain, sha256-equal); ec.decode and every needle
+                 read back through client.operation. Per step: wall time,
+                 MB/s, GET p50 / p99, remote interval reads, master lookups
+                 and reconstructs
 Then the memory line, the kernel summary line, the `nvidia-smi` line, and
 the result line {"ok": true, "device": {...}} last. Each path phase is
 driven with every kernel entry's launch counter set to 0 just before it
@@ -1847,21 +1865,29 @@ def _flip(path: str, offset: int) -> None:
         f.write(bytes([b[0] ^ 0xFF]))
 
 
-def _timed_attrs(obj, names) -> dict:
+_TIMED_LOCK = threading.Lock()
+
+
+def _timed_attrs(obj, names, stats=None, when=None) -> dict:
     """Wrap each callable attribute `name` of `obj` to add up its calls
-    and seconds; returns {name: {"calls", "seconds"}} (live)."""
-    stats = {}
+    and seconds into stats[name] (a fresh {"calls", "seconds"} unless
+    `stats` already holds one, so several objects can share it); with
+    `when`, only calls whose positional arguments satisfy it count.
+    Returns `stats` (live)."""
+    stats = {} if stats is None else stats
     for name in names:
         fn = getattr(obj, name)
-        st = stats[name] = {"calls": 0, "seconds": 0.0}
+        st = stats.setdefault(name, {"calls": 0, "seconds": 0.0})
 
         def timed(*a, fn=fn, st=st, **kw):
             t0 = time.perf_counter()
             try:
                 return fn(*a, **kw)
             finally:
-                st["calls"] += 1
-                st["seconds"] += time.perf_counter() - t0
+                if when is None or when(*a):
+                    with _TIMED_LOCK:
+                        st["calls"] += 1
+                        st["seconds"] += time.perf_counter() - t0
 
         setattr(obj, name, timed)
     return stats
@@ -2159,6 +2185,427 @@ def server_batcher(work: str, volume_mb: int, seed: int,
          shards_sha256_equal_to_cpu=total, rebuilt_sha256_equal=True)
 
 
+CLUSTER_SERVERS = 4
+PRUNE_AFTER_S = 4.0  # two volume-server pulses (2 s) without a heartbeat
+
+
+def _wait_for(cond, what: str, timeout: float = 10.0):
+    """Poll `cond` until it returns something true; fail after
+    `timeout` seconds naming `what`."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = cond()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError(f"cluster: timed out after {timeout} s "
+                                 f"waiting for {what}")
+        time.sleep(0.05)
+
+
+def _ec_holders(mc, vid: int) -> dict[int, list[str]]:
+    """{shard id: [holder urls]} from the master's /dir/lookup_ec."""
+    mc.invalidate(vid)
+    return {e["shard_id"]: [loc["url"] for loc in e["locations"]]
+            for e in mc.lookup_ec_volume(vid)}
+
+
+class _ServerMeters:
+    """Per-step meters over the cluster's live volume servers: remote
+    interval reads (the store's remote_shard_reader: direct reads and the
+    columns a reconstruct fetches), master lookups (/dir/lookup_ec round
+    trips behind the 5 s shard-location cache) and reconstructs (the
+    store's recovered-interval counter, one K1 launch each)."""
+
+    def __init__(self, servers):
+        self.servers = list(servers)
+        self.stats: dict = {}
+        for vs in self.servers:
+            _timed_attrs(vs.store, ("remote_shard_reader",), self.stats)
+            _timed_attrs(vs, ("_master_json",), self.stats,
+                         lambda method, path, *a:
+                         path.startswith("/dir/lookup_ec"))
+
+    def drop(self, vs) -> None:
+        self.servers.remove(vs)
+
+    def recovered(self) -> int:
+        return sum(vs.store.ec_recover_stats["generic"]
+                   for vs in self.servers)
+
+    def start(self) -> None:
+        for st in self.stats.values():
+            st.update(calls=0, seconds=0.0)
+        self._recovered0 = self.recovered()
+
+    def read(self) -> dict:
+        return {"remote_interval_reads":
+                dict(self.stats["remote_shard_reader"]),
+                "master_lookups": dict(self.stats["_master_json"]),
+                "reconstructs": self.recovered() - self._recovered0}
+
+
+def _launched_per_reconstruct(counts: PathCounts, name: str,
+                               reconstructs: int) -> dict:
+    """A GET step's K1 launches: one per interval the servers
+    reconstructed (none on a healthy volume), and no other entry."""
+    if reconstructs:
+        return counts.read("cluster", "gf_apply", reconstructs)
+    if any(counts.now().values()):
+        raise AssertionError(f"{name}: launches {counts.now()} without "
+                             "a reconstruct")
+    return counts.now()
+
+
+def _cluster_gets(files: list, urls: list[str], threads: int = 1):
+    """GET every needle over HTTP, needle i from urls[i % len(urls)] (a
+    client spreads its reads over the volume's holders), on `threads`
+    client threads; every body is checked byte for byte. Returns (wall
+    seconds, per-GET seconds)."""
+    from seaweedfs_tpu_torch.utils.httpd import http_call
+    took: list[float] = []
+    jobs = [(fid, data, urls[i % len(urls)])
+            for i, (fid, data) in enumerate(files)]
+
+    def get(part):
+        for fid, data, url in part:
+            t0 = time.perf_counter()
+            status, body, _ = http_call("GET", f"http://{url}/{fid}",
+                                        timeout=120)
+            took.append(time.perf_counter() - t0)
+            if status != 200 or body != data:
+                raise AssertionError(f"GET {fid} from {url}: {status}, "
+                                     f"{len(body)} of {len(data)} bytes")
+
+    t0 = time.monotonic()
+    if threads == 1:
+        get(jobs)
+    else:
+        _run_threads([(get, (jobs[i::threads],), {})
+                      for i in range(threads)])
+    return time.monotonic() - t0, took
+
+
+def cluster_phase(work: str, volume_mb: int, seed: int,
+                  counts: PathCounts) -> None:
+    """20. The port's own cluster on the card: its MasterServer (default
+    repair settings) and four of its VolumeServers on the card, on racks
+    r0 / r1 of dc1, driven through its MasterClient, client.operation and
+    ShellContext as `weed upload`, `ec.encode`, `ec.rebuild` and
+    `ec.decode` drive them."""
+    from seaweedfs_tpu_torch.client import operation
+    from seaweedfs_tpu_torch.client.wdclient import MasterClient
+    from seaweedfs_tpu_torch.ops.rs_cpu import CpuCoderMT
+    from seaweedfs_tpu_torch.ops.rs_torch import TorchCoder
+    from seaweedfs_tpu_torch.server.master import MasterServer
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.shell.commands import ShellContext
+    from seaweedfs_tpu_torch.storage.erasure_coding import encoder, layout
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+    import numpy as np
+    total = layout.TOTAL_SHARDS_COUNT
+    root = os.path.join(work, "cluster")
+    master = MasterServer(volume_size_limit_mb=1024)
+    master.start()
+    servers: list = []
+    live: list = []
+    steps: dict = {}
+    launches: dict = {}
+    mc = None
+    try:
+        sh = ShellContext(master.url)
+
+        def n_nodes():
+            topo = sh.topology()
+            return sum(len(r["nodes"]) for dc in topo["data_centers"]
+                       for r in dc["racks"])
+
+        for i in range(CLUSTER_SERVERS):
+            vs = VolumeServer([os.path.join(root, f"v{i}")], master.url,
+                              rack=f"r{i % 2}", data_center="dc1",
+                              scrub_interval_s=0, scrub_rate_mbps=0)
+            vs.start()
+            servers.append(vs)
+            live.append(vs)
+            if not isinstance(vs.store.coder, TorchCoder) or \
+                    vs.store.coder.device.type != "cuda":
+                raise AssertionError(f"server {i} took {vs.store.coder}")
+            _wait_for(lambda: n_nodes() == i + 1,
+                      f"volume server {i} to register")
+        index = {vs.url: i for i, vs in enumerate(servers)}
+        meters = _ServerMeters(servers)
+        mc = MasterClient(master.url)
+
+        # 1. upload config 1's needle mix through client.operation
+        rng = np.random.default_rng(seed + 20)
+        sizes = []
+        while sum(sizes) < volume_mb << 20:
+            sizes.append(int(rng.integers(1 << 10, (4 << 20) + 1)))
+        blob = rng.bytes(sum(sizes))
+        mv = memoryview(blob)
+        files: list = []
+        off = 0
+        counts.start()
+        t0 = time.monotonic()
+        for size in sizes:
+            data = bytes(mv[off:off + size])
+            off += size
+            files.append((operation.upload_data(mc, data).fid, data))
+        wall = time.monotonic() - t0
+        del blob, mv
+        payload = sum(len(d) for _, d in files)
+        if any(counts.now().values()):
+            raise AssertionError(f"uploads launched {counts.now()}")
+        vids = sorted({int(fid.split(",")[0]) for fid, _ in files})
+        if len(vids) != 1:
+            raise AssertionError(f"the master grew volumes {vids}, not one")
+        vid = vids[0]
+        steps["upload"] = _step(payload, wall, needles=len(files),
+                                assigns_from_leases=mc.lease_assigns,
+                                assigns_from_master=mc.lease_fallbacks)
+
+        # 2. ec.encode: generate on the source (K1), spread by ec_plan;
+        # the source .dat hard-linked first, for the host coder's check
+        src = next(vs for vs in servers if vs.store.find_volume(vid))
+        base = os.path.join(root, f"v{index[src.url]}", str(vid))
+        dat_size = os.path.getsize(base + ".dat")
+        keep = os.path.join(root, "source")
+        os.makedirs(keep)
+        os.link(base + ".dat", os.path.join(keep, f"{vid}.dat"))
+        sh.lock()
+        counts.start()
+        meters.start()
+        t0 = time.monotonic()
+        enc = sh.ec_encode()
+        wall = time.monotonic() - t0
+        batches = _encode_batches(dat_size, layout.DATA_SHARDS_COUNT)
+        launches["encode"] = counts.read("cluster", "gf_apply", batches)
+        if [r["vid"] for r in enc] != [vid] or \
+                enc[0]["source"] != src.url:
+            raise AssertionError(f"ec.encode answered {enc}")
+        placement = {index[u]: s for u, s in enc[0]["placement"].items()}
+        holders = _ec_holders(mc, vid)
+        shard_sha = {}
+        for sid in range(total):
+            if len(holders.get(sid, [])) != 1:
+                raise AssertionError(f"shard {sid} held by {holders}")
+            i = index[holders[sid][0]]
+            if sid not in placement[i]:
+                raise AssertionError(f"shard {sid} on {i}, not {placement}")
+            shard_sha[sid] = sha256_file(os.path.join(
+                root, f"v{i}", f"{vid}{layout.shard_ext(sid)}"))
+        cpu_sha = cpu_shard_sha(os.path.join(keep, str(vid)), dat_size,
+                                CpuCoderMT())
+        if [shard_sha[s] for s in range(total)] != cpu_sha:
+            raise AssertionError("spread shards differ from CpuCoderMT's")
+        shutil.rmtree(keep)
+        if os.path.exists(base + ".dat"):
+            raise AssertionError("ec.encode left the source .dat")
+        steps["encode"] = _step(dat_size, wall, batches=batches,
+                                **meters.read())
+
+        # 3. every needle from the spread volume, 1 and 16 client threads
+        urls = sorted({u for us in holders.values() for u in us})
+        for name, threads in (("get_1", 1), ("get_16", 16)):
+            counts.start()
+            meters.start()
+            wall, took = _cluster_gets(files, urls, threads)
+            got = meters.read()
+            if got["reconstructs"]:
+                raise AssertionError(f"{name}: {got} on a healthy volume")
+            launches[name] = _launched_per_reconstruct(counts, name, 0)
+            steps[name] = _step(payload, wall, **got, **_ms_stats(took))
+
+        # 4. lose the server holding the most shards; prune it
+        held = {i: (len(s), 0 in s) for i, s in placement.items()}
+        victim = servers[max(held, key=held.get)]
+        victim.stop()
+        live.remove(victim)
+        meters.drop(victim)
+
+        def pruned():
+            master.topo.prune_dead_nodes(timeout=PRUNE_AFTER_S)
+            return n_nodes() == len(live)
+
+        t0 = time.monotonic()
+        _wait_for(pruned, "the master to prune the stopped server")
+        prune_s = time.monotonic() - t0
+        lost = sorted(placement[index[victim.url]])
+        urls = sorted(vs.url for vs in live)
+        for name, threads in (("get_degraded_1", 1),
+                              ("get_degraded_16", 16)):
+            counts.start()
+            meters.start()
+            wall, took = _cluster_gets(files, urls, threads)
+            got = meters.read()
+            # the first pass after the loss must reconstruct; the second
+            # may find the needle caches warm (all of them at a small size)
+            if threads == 1 and not got["reconstructs"]:
+                raise AssertionError(f"{name}: no interval reconstructed")
+            launches[name] = _launched_per_reconstruct(
+                counts, name, got["reconstructs"])
+            steps[name] = _step(payload, wall, **got, **_ms_stats(took))
+
+        # 5. ec.rebuild: survivors copied to the rebuilder, K1, mount
+        status = sh.ec_repair_status()
+        queued = [t for t in status["queue"] + status["in_flight"]
+                  if t["volume_id"] == vid]
+        if queued:
+            raise AssertionError(f"the repair queue raced ec.rebuild: "
+                                 f"{queued}")
+        counts.start()
+        meters.start()
+        t0 = time.monotonic()
+        plans = sh.ec_rebuild()
+        rebuilt_at = time.monotonic()
+        wall = rebuilt_at - t0
+        if len(plans) != 1 or sorted(plans[0].get("rebuilt", [])) != lost:
+            raise AssertionError(f"ec.rebuild answered {plans}, lost {lost}")
+        rebuilder = next(vs for vs in live
+                         if vs.url == plans[0]["rebuilder"])
+        rdir = os.path.join(root, f"v{index[rebuilder.url]}")
+        shard_size = os.path.getsize(
+            os.path.join(rdir, f"{vid}{layout.shard_ext(lost[0])}"))
+        batches = -(-shard_size // encoder.DEFAULT_BATCH_SIZE)
+        launches["rebuild"] = counts.read("cluster", "gf_apply", batches)
+        for sid in lost:
+            path = os.path.join(rdir, f"{vid}{layout.shard_ext(sid)}")
+            if sha256_file(path) != shard_sha[sid]:
+                raise AssertionError(f"rebuilt shard {sid} differs")
+        holders = _ec_holders(mc, vid)
+        if sorted(s for s, us in holders.items() if us) != \
+                list(range(total)):
+            raise AssertionError(f"after ec.rebuild: {holders}")
+        steps["rebuild"] = _step(shard_size * len(lost), wall,
+                                 batches=batches,
+                                 copies=len(plans[0]["copies"]),
+                                 **meters.read())
+        counts.start()
+        meters.start()
+        urls = sorted({u for us in holders.values() for u in us})
+        wall, took = _cluster_gets(files, urls)
+        # a server's 5 s shard-location cache may still list a rebuilt
+        # shard as lost: such an interval is reconstructed, not fetched
+        got = meters.read()
+        launches["get_rebuilt"] = _launched_per_reconstruct(
+            counts, "get_rebuilt", got["reconstructs"])
+        steps["get_rebuilt"] = _step(payload, wall, **got,
+                                     **_ms_stats(took))
+
+        # 6. the repair queue: a holder's parity shard flipped; its
+        # /admin/scrub (remote-assisted: it holds fewer than k shards)
+        # reports it, the master's queue repairs it (partial chain)
+        holder = next(vs for vs in live if vs is not rebuilder)
+        hidx = index[holder.url]
+        parity = [s for s in placement[hidx]
+                  if s >= layout.DATA_SHARDS_COUNT]
+        if len(parity) != 1:
+            raise AssertionError(f"server {hidx} holds {placement[hidx]}")
+        psid = parity[0]
+        # in the last row group: the queue unmounts a reported shard at
+        # once, and a pass still reading it fails on the next group (as
+        # the JAX package's scrubber does)
+        chunk = holder.scrubber.ec_chunk_bytes
+        group = -(-shard_size // chunk) - 1
+        at = group * chunk + int(rng.integers(
+            0, min(chunk, shard_size - group * chunk)))
+        _flip(os.path.join(root, f"v{hidx}",
+                           f"{vid}{layout.shard_ext(psid)}"), at)
+        # the holder's shard-location cache must have seen the rebuilt
+        # shards, else the remote-assisted check finds a column without a
+        # holder and skips the volume
+        time.sleep(max(0.0, rebuilt_at + VolumeServer.SHARD_LOC_TTL + 0.5
+                       - time.monotonic()))
+        before = sh.ec_repair_status()
+        counts.start()
+        meters.start()
+        t0 = time.monotonic()
+        scrub = _vs_json(holder.url, "/admin/scrub", {"volume_id": vid})
+        scrub_wall = time.monotonic() - t0
+        named = [(c["shard_ids"], c["offset"]) for c in scrub["corruptions"]]
+        if named != [([psid], group * chunk)]:
+            raise AssertionError(f"scrub named {scrub['corruptions']}, "
+                                 f"flipped shard {psid} at {at}: "
+                                 f"{scrub['volumes']}")
+        if any(counts.now().values()):
+            raise AssertionError(f"the remote-assisted scrub launched "
+                                 f"{counts.now()}")
+        scrub_meters = meters.read()
+
+        def repaired():
+            st = sh.ec_repair_status()
+            return st["repaired_total"] > before["repaired_total"] and \
+                not st["in_flight"] and not st["queue"] and st
+
+        status = _wait_for(repaired, "the repair queue's repair",
+                           timeout=120.0)
+        wall = time.monotonic() - t0
+        if any(counts.now().values()):
+            raise AssertionError(f"the repair launched {counts.now()}")
+        holders = _ec_holders(mc, vid)
+        if len(holders.get(psid, [])) != 1:
+            raise AssertionError(f"shard {psid} after repair: {holders}")
+        new_holder = holders[psid][0]
+        repaired_sha = sha256_file(os.path.join(
+            root, f"v{index[new_holder]}", f"{vid}{layout.shard_ext(psid)}"))
+        if repaired_sha != shard_sha[psid]:
+            raise AssertionError(f"repaired shard {psid} differs")
+        steps["scrub"] = _step(scrub["bytes"], scrub_wall,
+                               remote_assisted=True, **scrub_meters)
+        steps["repair"] = {
+            "seconds": wall, "shard": psid,
+            "strategy": status.get("last_strategy"),
+            "partial_repairs": status["partial_repairs"],
+            "partial_fallbacks": status["partial_fallbacks"],
+            "bytes_moved": status["bytes_moved"] - before["bytes_moved"],
+            "network_bytes_per_mb":
+                status["last_repair_network_bytes_per_mb"],
+            "from_server": hidx, "to_server": index[new_holder]}
+        if status["partial_repairs"] != before["partial_repairs"] + 1:
+            raise AssertionError(f"not the partial chain: {status}")
+
+        # 7. ec.decode onto one server; read every needle back
+        counts.start()
+        meters.start()
+        t0 = time.monotonic()
+        dec = sh.ec_decode(vid)
+        wall = time.monotonic() - t0
+        if any(counts.now().values()):
+            raise AssertionError(f"ec.decode launched {counts.now()}")
+        steps["decode"] = _step(dat_size, wall,
+                                collector=index[dec["collector"]],
+                                dat_bytes=dec["dat_size"], **meters.read())
+        sh.unlock()
+
+        def readable():
+            mc.invalidate(vid)
+            try:
+                return mc.lookup_volume(vid)
+            except Exception:
+                return None
+
+        _wait_for(readable, "the decoded volume to be looked up")
+        t0 = time.monotonic()
+        for fid, data in files:
+            if operation.read_data(mc, fid) != data:
+                raise AssertionError(f"read_data {fid} after ec.decode")
+        steps["read_decoded"] = _step(payload, time.monotonic() - t0)
+    finally:
+        if mc is not None:
+            mc.stop()
+        for vs in live:
+            vs.stop()
+        master.stop()
+    emit("cluster", volume_mb=volume_mb, servers=CLUSTER_SERVERS,
+         racks={i: f"r{i % 2}" for i in range(CLUSTER_SERVERS)},
+         needles=len(files), payload_bytes=payload, dat_bytes=dat_size,
+         volume_id=vid, placement=placement, victim=index[victim.url],
+         lost=lost, prune_s=prune_s,
+         rebuilder=index[rebuilder.url], steps=steps, launches=launches,
+         shards_sha256_equal_to_cpu=total, rebuilt_sha256_equal=True,
+         repaired_sha256_equal=True, bodies_equal=True)
+
+
 def kernel_entry(name: str, source: str, replaces: str, counts: PathCounts,
                  worst: int, row: dict, timing: list[dict]) -> dict:
     launches = counts.total(name)
@@ -2217,6 +2664,10 @@ def main() -> int:
     ap.add_argument("--batch-volume-mb", type=int, default=32,
                     help="MiB of needle payload in each of them "
                          "(default 32)")
+    ap.add_argument("--cluster-volume-mb", type=int, default=1000,
+                    help="MiB of needle payload uploaded to the cluster "
+                         "phase's one volume (default 1000, inside the "
+                         "master's 1024 MiB volume size limit)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if args.batch_volumes < len(BATCH_LOSSES):
@@ -2263,6 +2714,7 @@ def main() -> int:
                            timing_batch[0]["gf_apply_batch_ms"])
         server_phase(work, args.volume_mb, args.alt_volume_mb, args.seed,
                      counts, batch_counts)
+        cluster_phase(work, args.cluster_volume_mb, args.seed, counts)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit("memory", max_memory_allocated=torch.cuda.max_memory_allocated(0),

@@ -1,0 +1,682 @@
+"""Master-side repair scheduler for EC volumes.
+
+A prioritized queue fed from two directions: scrub corruption reports
+(POST /scrub/report from volume servers) and heartbeat shard-bit deltas
+(the topology's ec_shard_map already reflects them, so a periodic scan
+spots vids with 0 < present shards < 14). Priority is shards-lost — a
+volume one shard away from unreadable outranks one that just lost its
+first parity — matching the risk-ordered repair argument of the
+degraded-reads line of work (arxiv 2306.10528).
+
+Each dispatch drives the same choreography as the `ec.rebuild` shell
+command (plan copies → /admin/ec/copy → /admin/ec/rebuild →
+/admin/ec/mount), but initiated by the master with no operator in the
+loop. Failed repairs back off exponentially (base 2, capped) and are
+re-dispatched; concurrent repairs are capped; bytes moved are accounted
+so repair traffic is observable against the cluster's bandwidth budget
+(arxiv 1309.0186's core concern).
+
+The port's copy of seaweedfs_tpu/scrub/repair_queue.py, the same code; it imports
+nothing of that package.
+"""
+
+from __future__ import annotations
+
+import threading
+
+from seaweedfs_tpu_torch.qos import BACKGROUND, class_scope
+from seaweedfs_tpu_torch.storage.erasure_coding import layout
+from seaweedfs_tpu_torch.utils import clockctl, glog, profiler, tracing
+from seaweedfs_tpu_torch.utils.httpd import http_json
+from seaweedfs_tpu_torch.utils.limiter import TokenBucket
+from seaweedfs_tpu_torch.utils.resilience import Deadline
+
+MAX_RECENT_NEEDLE_REPORTS = 64
+
+
+class RepairTask:
+    __slots__ = ("vid", "collection", "priority", "corrupt_shards",
+                 "reason", "enqueued_at", "attempts", "next_attempt",
+                 "last_error")
+
+    def __init__(self, vid: int, collection: str, priority: int,
+                 corrupt_shards: set, reason: str):
+        self.vid = vid
+        self.collection = collection
+        self.priority = priority
+        self.corrupt_shards = set(corrupt_shards)
+        self.reason = reason
+        self.enqueued_at = clockctl.now()
+        self.attempts = 0
+        self.next_attempt = 0.0
+        self.last_error = ""
+
+    def to_info(self) -> dict:
+        return {"volume_id": self.vid, "collection": self.collection,
+                "priority": self.priority,
+                "corrupt_shards": sorted(self.corrupt_shards),
+                "reason": self.reason,
+                "enqueued_at": self.enqueued_at,
+                "attempts": self.attempts,
+                "next_attempt": self.next_attempt,
+                "last_error": self.last_error}
+
+
+class RepairQueue:
+    def __init__(self, master, max_concurrent: int = 2,
+                 backoff_base: float = 2.0, backoff_max: float = 300.0,
+                 scan_grace_s: float = 60.0,
+                 repair_rate_mbps: float = 0.0,
+                 partial_repair: bool = True,
+                 drain_grace_s: float = 120.0,
+                 coalesce_window_s: float = 0.0):
+        """scan_grace_s: how long a volume must stay CONTINUOUSLY
+        degraded in the heartbeat shard map before the scanner enqueues
+        it — transient states (a node mid-restart, an operator running
+        ec.rebuild/ec.decode by hand) must not trigger a competing
+        automatic rebuild. Scrub corruption reports skip the grace:
+        bit rot never heals itself.
+
+        repair_rate_mbps: CLUSTER-WIDE repair bandwidth budget — one
+        token bucket shared by every concurrent rebuild's copy and
+        rebuild traffic, so N parallel repairs split the budget instead
+        of each taking the full rate (<= 0 = unlimited).
+
+        drain_grace_s: how long after a node announces a graceful
+        drain its volumes stay exempt from the degraded scan — a
+        rolling restart (drain, stop, start, re-register) must look
+        like nothing happened, not like a repair storm. Scrub
+        corruption reports still skip every grace.
+
+        partial_repair: try the network-frugal partial-column rebuild
+        (/admin/ec/rebuild_partial — the rebuilder pulls pre-reduced
+        columns through a reduction chain, ~1 shard-width received per
+        lost shard) before falling back to the legacy copy+rebuild
+        choreography (~k shard-widths staged on the rebuilder).
+
+        coalesce_window_s: hold a freshly-enqueued repair up to this
+        long waiting for siblings, so a burst (a node death degrades
+        many volumes at once) dispatches as one WAVE of concurrent
+        rebuilds whose EC work lands together on the volume servers'
+        batch scheduler (parallel/batcher.py) instead of trickling in
+        one coder dispatch at a time. A full wave (max_concurrent
+        tasks ready) dispatches immediately; 0 (the default) keeps
+        per-task immediate dispatch."""
+        self.master = master
+        self.partial_repair = partial_repair
+        self.max_concurrent = max_concurrent
+        self.backoff_base = backoff_base
+        self.backoff_max = backoff_max
+        self.scan_grace_s = scan_grace_s
+        self.drain_grace_s = drain_grace_s
+        self.coalesce_window_s = coalesce_window_s
+        self.dispatch_waves = 0
+        self.last_wave_size = 0
+        # vid -> wall-clock deadline: exempt from the degraded scan
+        # while its (graceful-drain-departed) holder is expected back
+        self._drain_grace: dict[int, float] = {}
+        self._base_rate = repair_rate_mbps * 1024 * 1024
+        self.bandwidth = TokenBucket(self._base_rate)
+        # max qos_pressure over live nodes, refreshed each tick(): the
+        # budget backs off up to 80% while serving nodes shed load
+        self.cluster_pressure = 0.0
+        self._degraded_since: dict[int, float] = {}
+        self._lock = threading.Lock()
+        self._tasks: dict[int, RepairTask] = {}
+        self._in_flight: dict[int, RepairTask] = {}
+        self._stop = threading.Event()
+        self.repaired_total = 0
+        self.failed_total = 0
+        self.bytes_moved = 0
+        self.partial_repairs = 0
+        self.partial_fallbacks = 0
+        # network bytes RECEIVED by the rebuilder per MiB of shard
+        # rebuilt, for the most recent repair (partial: ~1 shard-width
+        # per lost shard ≈ 1.0; legacy copy+rebuild: ≈ k/missing)
+        self.last_repair_network_bytes_per_mb = 0.0
+        # repair-strategy planner bookkeeping: the planner consults the
+        # rebuilder's CodeSpec and, for plan-capable families (LRC),
+        # narrows the source fan-out to the cheapest repair ("local" =
+        # surviving group members only, "global" = full-width decode)
+        self.last_strategy = ""
+        self.strategy_counts: dict[str, int] = {}
+        self.last_lag_s = 0.0
+        self.scrub_reports = 0
+        self.recent_needle_reports: list[dict] = []
+        m = master.metrics
+        self._g_depth = m.gauge("master", "ec_repair_queue_depth",
+                                "EC repair tasks queued or in flight")
+        self._c_repairs = m.counter("master", "ec_repairs_total",
+                                    "EC repairs attempted", ("result",))
+        self._g_lag = m.gauge("master", "ec_repair_lag_seconds",
+                              "enqueue-to-repair lag of the last repair")
+        self._c_bytes = m.counter("master", "ec_repair_bytes_total",
+                                  "bytes moved by EC repairs")
+        self._c_reports = m.counter("master", "scrub_reports_total",
+                                    "scrub corruption reports received",
+                                    ("type",))
+        self._g_budget = m.gauge(
+            "master", "ec_repair_budget_remaining_bytes",
+            "cluster-wide repair bandwidth budget remaining")
+        self._g_netmb = m.gauge(
+            "master", "ec_repair_network_bytes_per_mb",
+            "rebuilder-received network bytes per MiB rebuilt "
+            "(last repair)")
+        m.on_expose(self._refresh_gauges)
+
+    # ---- intake ----
+    def report(self, body: dict) -> dict:
+        """A scrub corruption report from a volume server. EC shard
+        corruption feeds the queue; needle CRC failures in replicated
+        .dat volumes are recorded for the operator (repair there means
+        replica copy / weed fix, a roadmap item)."""
+        kind = body.get("type", "unknown")
+        with self._lock:
+            self.scrub_reports += 1
+        self._c_reports.inc(kind)
+        if kind == "ec_shard":
+            vid = int(body.get("volume_id", 0))
+            shards = set(int(s) for s in body.get("shard_ids", []))
+            self.submit(vid, body.get("collection", ""),
+                        corrupt_shards=shards,
+                        reason=f"scrub:{body.get('detail', 'corrupt')}")
+            return {"queued": True, "volume_id": vid}
+        with self._lock:
+            self.recent_needle_reports.append(body)
+            del self.recent_needle_reports[:-MAX_RECENT_NEEDLE_REPORTS]
+        return {"queued": False, "recorded": True}
+
+    def note_drain(self, vids, grace_s: "float | None" = None) -> float:
+        """A node carrying `vids` announced a graceful drain: exempt
+        those volumes from the degraded scan until the grace expires
+        (refreshes on every draining heartbeat). Returns the
+        deadline."""
+        until = clockctl.now() + (self.drain_grace_s
+                               if grace_s is None else grace_s)
+        with self._lock:
+            for vid in vids:
+                self._drain_grace[vid] = max(
+                    self._drain_grace.get(vid, 0.0), until)
+        return until
+
+    def submit(self, vid: int, collection: str = "",
+               corrupt_shards: set = frozenset(),
+               reason: str = "manual") -> RepairTask:
+        """Enqueue (or merge into) a repair for vid, then try to
+        dispatch immediately. Priority = shards effectively lost."""
+        with self._lock:
+            task = self._tasks.get(vid) or self._in_flight.get(vid)
+            if task is not None:
+                task.corrupt_shards |= set(corrupt_shards)
+                task.priority = max(task.priority,
+                                    self._priority(vid, task))
+                return task
+            task = RepairTask(vid, collection, 0, corrupt_shards, reason)
+            task.priority = self._priority(vid, task)
+            self._tasks[vid] = task
+        self._dispatch()
+        return task
+
+    def _priority(self, vid: int, task: RepairTask) -> int:
+        """Shards lost = missing from the topology + locally corrupt
+        (a corrupt shard is as good as lost). A volume 1 shard from the
+        DATA_SHARDS cliff outranks one that just lost its first
+        parity."""
+        missing = 0
+        try:
+            owners = self.master.topo.lookup_ec_shards(vid)
+            if owners:
+                missing = sum(1 for nodes in owners if not nodes)
+        except Exception:
+            pass
+        return max(1, missing + len(task.corrupt_shards))
+
+    # ---- scheduling ----
+    def tick(self) -> None:
+        """Called from the master's prune loop while leader: refresh
+        cluster QoS pressure (throttling the bandwidth budget), scan
+        for degraded volumes, then dispatch whatever is ready."""
+        try:
+            self._apply_pressure()
+        except Exception as e:
+            glog.warning("repair pressure refresh failed: %s", e)
+        try:
+            self._scan()
+        except Exception as e:
+            glog.warning("repair scan failed: %s", e)
+        self._dispatch()
+
+    def _apply_pressure(self) -> None:
+        """Subscribe the repair budget to cluster QoS pressure: the
+        effective rate is base * (1 - 0.8*max_pressure), floored at 20%
+        of base so repairs always creep forward: a cluster that never
+        heals is worse than one that heals slowly."""
+        if self._base_rate <= 0:
+            return
+        topo = self.master.topo
+        with topo.lock:
+            p = max((n.qos_pressure for n in topo.all_nodes()), default=0.0)
+        p = max(0.0, min(1.0, float(p)))
+        if abs(p - self.cluster_pressure) < 0.01:
+            return
+        self.cluster_pressure = p
+        self.bandwidth.set_rate(self._base_rate * max(0.2, 1.0 - 0.8 * p))
+
+    def _scan(self) -> None:
+        topo = self.master.topo
+        with topo.lock:
+            degraded = {
+                vid: sum(1 for nodes in owners if not nodes)
+                for vid, owners in topo.ec_shard_map.items()
+                if 0 < sum(1 for nodes in owners if nodes)
+                < layout.TOTAL_SHARDS_COUNT}
+        now = clockctl.now()
+        for vid in list(self._degraded_since):
+            if vid not in degraded:
+                del self._degraded_since[vid]
+        with self._lock:
+            for vid in list(self._drain_grace):
+                if self._drain_grace[vid] <= now:
+                    del self._drain_grace[vid]
+            in_grace = set(self._drain_grace)
+        for vid, missing in degraded.items():
+            if missing <= 0:
+                continue
+            if vid in in_grace:
+                # the holder left via graceful drain and is expected
+                # back; restart the continuous-degraded clock so the
+                # normal scan grace only starts once drain grace ends
+                self._degraded_since[vid] = now
+                continue
+            since = self._degraded_since.setdefault(vid, now)
+            if now - since < self.scan_grace_s:
+                continue
+            # heartbeat shard bits carry no collection; "" resolves to
+            # the default collection, and a scrub report for the same
+            # vid merges in without clobbering (scrub reports DO know)
+            self.submit(vid, "", reason="heartbeat:degraded")
+
+    def _dispatch(self) -> None:
+        now = clockctl.now()
+        to_run = []
+        with self._lock:
+            ready = sorted(
+                (t for t in self._tasks.values()
+                 if t.next_attempt <= now),
+                key=lambda t: (-t.priority, t.enqueued_at))
+            room = max(0, self.max_concurrent - len(self._in_flight))
+            if (self.coalesce_window_s > 0 and room > 0
+                    and len(ready) < room):
+                # partial wave: hold young tasks for siblings (a later
+                # submit() or tick() re-dispatches); a task that has
+                # waited out the window goes regardless
+                ready = [t for t in ready
+                         if now - t.enqueued_at >= self.coalesce_window_s]
+            for task in ready[:room]:
+                del self._tasks[task.vid]
+                self._in_flight[task.vid] = task
+                to_run.append(task)
+            if to_run:
+                self.dispatch_waves += 1
+                self.last_wave_size = len(to_run)
+        for task in to_run:
+            threading.Thread(target=self._run, args=(task,),
+                             name=f"repair-{task.vid}",
+                             daemon=True).start()
+
+    def _run(self, task: RepairTask) -> None:
+        # each repair job is its own (always-sampled) trace root:
+        # repairs are rare, expensive, and exactly what the flight
+        # recorder exists to explain — every /admin/ec/* hop and the
+        # reduction-chain fan-out downstream stitch under this id
+        tracer = getattr(self.master, "tracer", None)
+        span = tracer.root_span(f"repair.rebuild vid={task.vid}",
+                                sampled=True) \
+            if tracer is not None else tracing.NOOP
+        status, err = 200, ""
+        tok = tracing.attach(span)
+        try:
+            # wall samples of this worker attribute to background
+            # repair, not an anonymous thread
+            with profiler.scope(cls=BACKGROUND, route="repair",
+                                trace_id=span.trace_id):
+                self._run_traced(task, span)
+        except BaseException as e:  # pragma: no cover - _run_traced
+            status, err = 500, f"{type(e).__name__}: {e}"  # swallows
+            raise
+        finally:
+            tracing.detach(tok)
+            span.finish(status=status, error=err)
+
+    def _run_traced(self, task: RepairTask, span) -> None:
+        try:
+            moved = self._repair(task)
+        except Exception as e:
+            with self._lock:
+                del self._in_flight[task.vid]
+                task.attempts += 1
+                task.last_error = str(e)
+                backoff = min(self.backoff_max,
+                              self.backoff_base * 2 ** (task.attempts - 1))
+                task.next_attempt = clockctl.now() + backoff
+                self._tasks[task.vid] = task
+                self.failed_total += 1
+            self._c_repairs.inc("failed")
+            span.annotate("repair.error", str(e))
+            glog.warning("ec repair vol %d attempt %d failed "
+                         "(backoff %.1fs): %s",
+                         task.vid, task.attempts, backoff, e)
+            return
+        lag = clockctl.now() - task.enqueued_at
+        span.annotate("repair.bytes_moved", moved)
+        span.annotate("repair.lag_s", round(lag, 3))
+        with self._lock:
+            del self._in_flight[task.vid]
+            self.repaired_total += 1
+            self.bytes_moved += moved
+            self.last_lag_s = lag
+        self._c_repairs.inc("ok")
+        self._g_lag.set(value=lag)
+        self._c_bytes.inc(amount=moved)
+        glog.info("ec repair vol %d done in %d attempt(s), %d bytes "
+                  "moved, lag %.1fs", task.vid, task.attempts + 1,
+                  moved, lag)
+
+    # ---- the repair itself ----
+    def _repair(self, task: RepairTask) -> int:
+        """ec.rebuild choreography for one volume. Returns bytes moved.
+        Raises on any step failure (caller handles backoff)."""
+        topo = self.master.topo
+        vid, collection = task.vid, task.collection
+
+        # 1. corrupt shards first become MISSING shards: unmount +
+        # delete them on their owners (the volume server pushes a delta
+        # heartbeat synchronously, so the topology is current when we
+        # re-plan below)
+        if task.corrupt_shards:
+            owners = topo.lookup_ec_shards(vid)
+            if owners is None:
+                raise LookupError(f"vol {vid} not in ec shard map")
+            for sid in sorted(task.corrupt_shards):
+                for node in list(owners[sid] if sid < len(owners)
+                                 else []):
+                    self._node_post(node.url, "/admin/ec/unmount",
+                                    {"volume_id": vid,
+                                     "shard_ids": [sid]})
+                    self._node_post(node.url, "/admin/ec/delete_shards",
+                                    {"volume_id": vid,
+                                     "collection": collection,
+                                     "shard_ids": [sid]})
+            task.corrupt_shards.clear()
+
+        # 2. where do the survivors live?
+        owners = topo.lookup_ec_shards(vid)
+        if owners is None:
+            raise LookupError(f"vol {vid} not in ec shard map")
+        shard_owners = {sid: [n for n in nodes]
+                        for sid, nodes in enumerate(owners)}
+        present = {sid for sid, nodes in shard_owners.items() if nodes}
+        missing = sorted(set(range(layout.TOTAL_SHARDS_COUNT)) - present)
+        if not missing:
+            return 0  # healed while queued (e.g. by an operator)
+        if len(present) < layout.DATA_SHARDS_COUNT \
+                and not self.partial_repair:
+            # the partial path may still repair an LRC group loss from
+            # fewer than k survivors; legacy copy+rebuild cannot
+            raise RuntimeError(
+                f"vol {vid}: only {len(present)} shards survive, "
+                f"need {layout.DATA_SHARDS_COUNT}")
+
+        # 3. rebuilder = node already holding the most shards (fewest
+        # copies to stage); collection comes from any present shard
+        counts: dict[str, int] = {}
+        node_by_url: dict[str, object] = {}
+        for sid in present:
+            for n in shard_owners[sid]:
+                counts[n.url] = counts.get(n.url, 0) + 1
+                node_by_url[n.url] = n
+        rebuilder_url = self._pick_rebuilder(counts, node_by_url)
+        have = {sid for sid in present
+                if any(n.url == rebuilder_url
+                       for n in shard_owners[sid])}
+        need = sorted(present - have)
+
+        # 4a. network-frugal path: the rebuilder pulls pre-reduced
+        # partial columns through a reduction chain instead of staging
+        # `need` full shards (ladder rung 3 falls through to 4b)
+        if self.partial_repair:
+            try:
+                return self._repair_partial(vid, collection,
+                                            shard_owners, present,
+                                            missing, rebuilder_url)
+            except Exception as e:
+                with self._lock:
+                    self.partial_fallbacks += 1
+                glog.warning(
+                    "ec repair vol %d: partial rebuild on %s failed "
+                    "(%s); falling back to copy+rebuild",
+                    vid, rebuilder_url, e)
+
+        # 4b. legacy choreography: stage every needed shard, then
+        # rebuild locally
+        if len(present) < layout.DATA_SHARDS_COUNT:
+            raise RuntimeError(
+                f"vol {vid}: only {len(present)} shards survive, "
+                f"need {layout.DATA_SHARDS_COUNT}")
+        moved = 0
+        for sid in need:
+            src = self._pick_source(shard_owners[sid])
+            resp = self._node_post(rebuilder_url, "/admin/ec/copy",
+                                   {"volume_id": vid,
+                                    "collection": collection,
+                                    "shard_ids": [sid],
+                                    "source_data_node": src.url,
+                                    "copy_ecx_file": True})
+            # charge the copy against the shared budget AFTER the
+            # transfer: the next copy (of ANY concurrent repair) waits
+            # until the long-run rate catches up
+            copied = int(resp.get("bytes", 0))
+            moved += copied
+            self.bandwidth.consume(copied, self._stop)
+        resp = self._node_post(rebuilder_url, "/admin/ec/rebuild",
+                               {"volume_id": vid,
+                                "collection": collection},
+                               timeout=600)
+        rebuilt = resp.get("rebuilt_shard_ids", [])
+        shard_size = int(resp.get("shard_size", 0))
+        if set(missing) - set(rebuilt):
+            raise RuntimeError(
+                f"vol {vid}: rebuild produced {rebuilt}, "
+                f"still missing {sorted(set(missing) - set(rebuilt))}")
+        self._node_post(rebuilder_url, "/admin/ec/mount",
+                        {"volume_id": vid, "collection": collection,
+                         "shard_ids": rebuilt})
+        self._note_strategy(resp.get("strategy", "global"))
+        self._note_network_cost(moved, shard_size, len(rebuilt))
+        moved += shard_size * len(rebuilt)
+        self.bandwidth.consume(shard_size * len(rebuilt), self._stop)
+        return moved
+
+    def _shard_stat(self, vid: int, collection: str, url: str) -> dict:
+        with class_scope(BACKGROUND):
+            resp = http_json(
+                "GET",
+                f"http://{url}/admin/ec/shard_stat?volumeId={vid}"
+                f"&collection={collection}", timeout=10)
+        return resp if isinstance(resp, dict) else {}
+
+    def _plan_sources(self, vid: int, collection: str, present: set,
+                      missing: list, rebuilder_url: str):
+        """Pick the cheapest repair for this failure pattern. Reads the
+        volume's CodeSpec off the rebuilder's shard_stat; plan-capable
+        families (LRC) narrow the source set — a single lost group
+        shard repairs from its ~k/l surviving group members instead of
+        fanning the reduction chain across k holders. Returns
+        (source_sids | None, strategy); None = use every survivor."""
+        try:
+            from seaweedfs_tpu_torch.models.coder import (coder_name_for_scheme,
+                                                    make_coder,
+                                                    scheme_from_dict)
+            spec = self._shard_stat(vid, collection, rebuilder_url)
+            scheme = scheme_from_dict(spec.get("code"))
+            coder = make_coder(coder_name_for_scheme(scheme), scheme)
+            if not hasattr(coder, "plan_rebuild"):
+                return None, "global"
+            src, _mat = coder.plan_rebuild(sorted(present), sorted(missing))
+            strategy = "local" if len(src) < scheme.data_shards \
+                else "global"
+            return set(src), strategy
+        except Exception as e:
+            glog.vlog(1, "ec repair vol %d: source planning skipped (%s)",
+                      vid, e)
+            return None, "global"
+
+    def _note_strategy(self, strategy: str) -> None:
+        with self._lock:
+            self.last_strategy = strategy
+            self.strategy_counts[strategy] = \
+                self.strategy_counts.get(strategy, 0) + 1
+
+    def _repair_partial(self, vid: int, collection: str,
+                        shard_owners: dict, present: set,
+                        missing: list, rebuilder_url: str) -> int:
+        """Drive /admin/ec/rebuild_partial on the rebuilder, then
+        mount. Returns bytes accounted (network received + rebuilt
+        shard bytes, mirroring the legacy accounting). Raises on any
+        failure — the caller falls back to copy+rebuild."""
+        plan_sids, planned = self._plan_sources(
+            vid, collection, present, missing, rebuilder_url)
+        sources = {}
+        for sid in sorted(present):
+            if plan_sids is not None and sid not in plan_sids:
+                continue
+            urls = [n.url for n in shard_owners[sid]
+                    if n.url != rebuilder_url]
+            if urls:
+                sources[sid] = urls
+        resp = self._node_post(rebuilder_url, "/admin/ec/rebuild_partial",
+                               {"volume_id": vid,
+                                "collection": collection,
+                                "missing": missing,
+                                "sources": sources},
+                               timeout=600)
+        rebuilt = resp.get("rebuilt_shard_ids", [])
+        shard_size = int(resp.get("shard_size", 0))
+        net = int(resp.get("network_bytes", 0))
+        if set(missing) - set(rebuilt):
+            raise RuntimeError(
+                f"vol {vid}: partial rebuild produced {rebuilt}, "
+                f"still missing {sorted(set(missing) - set(rebuilt))}")
+        self._node_post(rebuilder_url, "/admin/ec/mount",
+                        {"volume_id": vid, "collection": collection,
+                         "shard_ids": rebuilt})
+        with self._lock:
+            self.partial_repairs += 1
+        self._note_strategy(resp.get("strategy") or planned)
+        if resp.get("fallbacks"):
+            glog.info("ec repair vol %d: partial rebuild degraded "
+                      "mid-chain (%s)", vid, resp["fallbacks"])
+        self._note_network_cost(net, shard_size, len(rebuilt))
+        self.bandwidth.consume(net + shard_size * len(rebuilt),
+                               self._stop)
+        return net + shard_size * len(rebuilt)
+
+    def _note_network_cost(self, net_bytes: int, shard_size: int,
+                           n_rebuilt: int) -> None:
+        mb = shard_size * n_rebuilt / (1024.0 * 1024.0)
+        per_mb = round(net_bytes / mb, 1) if mb else 0.0
+        with self._lock:
+            self.last_repair_network_bytes_per_mb = per_mb
+        self._g_netmb.set(value=per_mb)
+
+    @staticmethod
+    def _scrubbing(node) -> bool:
+        return bool(getattr(node, "scrubbing", False))
+
+    def _pick_rebuilder(self, counts: dict, node_by_url: dict) -> str:
+        """Most-shards-first among nodes NOT mid-scrub-pass — a rebuild
+        hammers the same disks the scrubber is sweeping. Falls back to
+        the plain most-shards winner when every holder is scrubbing
+        (repair beats politeness)."""
+        idle = {u: c for u, c in counts.items()
+                if not self._scrubbing(node_by_url[u])}
+        pool = idle or counts
+        return max(pool, key=lambda u: pool[u])
+
+    def _pick_source(self, nodes: list):
+        """Copy source for one shard: any non-scrubbing holder, unless
+        no other holder exists."""
+        for n in nodes:
+            if not self._scrubbing(n):
+                return n
+        return nodes[0]
+
+    def _node_post(self, url: str, path: str, body: dict,
+                   timeout: float = 120) -> dict:
+        # repair traffic declares itself background: the receiving
+        # node's admission gate may shed it while overloaded (the
+        # task's backoff re-dispatches later)
+        with class_scope(BACKGROUND):
+            resp = http_json("POST", f"http://{url}{path}", body,
+                             timeout=timeout,
+                             deadline=Deadline.after(timeout))
+        if isinstance(resp, dict) and resp.get("error"):
+            raise RuntimeError(f"{url}{path}: {resp['error']}")
+        return resp if isinstance(resp, dict) else {}
+
+    # ---- control / observability ----
+    def kick(self) -> dict:
+        """Clear every backoff and dispatch immediately."""
+        with self._lock:
+            for task in self._tasks.values():
+                task.next_attempt = 0.0
+            n = len(self._tasks)
+        self._dispatch()
+        return {"kicked": n}
+
+    def status(self) -> dict:
+        with self._lock:
+            return {
+                "queue": sorted((t.to_info()
+                                 for t in self._tasks.values()),
+                                key=lambda d: -d["priority"]),
+                "in_flight": [t.to_info()
+                              for t in self._in_flight.values()],
+                "max_concurrent": self.max_concurrent,
+                "active": len(self._in_flight),
+                "queued": len(self._tasks),
+                "repair_rate_bytes_per_sec": self.bandwidth.rate,
+                "base_rate_bytes_per_sec": self._base_rate,
+                "cluster_qos_pressure": round(self.cluster_pressure, 4),
+                "drain_grace_vids": sorted(self._drain_grace),
+                "budget_remaining_bytes":
+                    (round(self.bandwidth.peek())
+                     if self.bandwidth.rate > 0 else None),
+                "repaired_total": self.repaired_total,
+                "failed_total": self.failed_total,
+                "bytes_moved": self.bytes_moved,
+                "coalesce_window_s": self.coalesce_window_s,
+                "dispatch_waves": self.dispatch_waves,
+                "last_wave_size": self.last_wave_size,
+                "partial_enabled": self.partial_repair,
+                "partial_repairs": self.partial_repairs,
+                "partial_fallbacks": self.partial_fallbacks,
+                "last_strategy": self.last_strategy,
+                "strategy_counts": dict(self.strategy_counts),
+                "last_repair_network_bytes_per_mb":
+                    self.last_repair_network_bytes_per_mb,
+                "last_lag_s": round(self.last_lag_s, 3),
+                "scrub_reports": self.scrub_reports,
+                "recent_needle_reports":
+                    list(self.recent_needle_reports),
+            }
+
+    def _refresh_gauges(self) -> None:
+        with self._lock:
+            depth = len(self._tasks) + len(self._in_flight)
+        self._g_depth.set(value=depth)
+        self._g_budget.set(value=self.bandwidth.peek()
+                           if self.bandwidth.rate > 0 else 0.0)
+
+    def stop(self) -> None:
+        self._stop.set()

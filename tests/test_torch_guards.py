@@ -54,7 +54,15 @@ def test_port_and_smoke_never_import_jax_or_reference():
     for rel in ("server/volume_server.py", "server/volume_tcp.py",
                 "scrub/scrubber.py", "stats/hotkeys.py", "stats/ledger.py",
                 "qos/governor.py", "qos/limiter.py", "utils/httpd.py",
-                "utils/tracing.py", "utils/limiter.py"):
+                "utils/tracing.py", "utils/limiter.py",
+                # the control plane: master, repair queue, client, shell
+                "cluster/sequence.py", "cluster/topology.py",
+                "cluster/volume_growth.py", "stats/slo.py",
+                "stats/telemetry.py", "filer/shard_ring.py",
+                "filer/rebalance.py", "storage/tiering.py",
+                "scrub/repair_queue.py", "server/master.py",
+                "client/wdclient.py", "client/operation.py",
+                "shell/ec_plan.py", "shell/commands.py"):
         assert PORT / rel in files, rel
     bad = {str(f.relative_to(REPO)): [n for n in _imported_modules(f)
                                       if _forbidden(n)]
@@ -296,3 +304,33 @@ def test_scrubber_on_a_cpu_store_takes_no_cuda_path(no_cuda, tmp_path):
     assert devices and set(devices) == {"cpu"}
     assert rs_cuda.launches == before
     assert rs_cuda._lib is None
+
+
+def test_control_plane_raises_for_what_is_not_ported(monkeypatch):
+    """The master, client and shell take no device, and the planes they
+    lack raise NotImplementedError where they are reached: the master's
+    gRPC plane (before any socket is bound) and Raft HA, the client's
+    gRPC push mode, and volume.fsck (it needs the filer). The shell
+    drives volume servers over HTTP without probing for gRPC."""
+    from seaweedfs_tpu_torch.client.wdclient import MasterClient
+    from seaweedfs_tpu_torch.server import master
+    from seaweedfs_tpu_torch.shell.commands import ShellContext
+    bound = []
+    monkeypatch.setattr(master, "HttpServer",
+                        lambda *a, **kw: bound.append(a))
+    with pytest.raises(NotImplementedError, match="gRPC"):
+        master.MasterServer(grpc_port=19333)
+    assert bound == []
+    monkeypatch.undo()
+    m = master.MasterServer()
+    try:
+        with pytest.raises(NotImplementedError, match="Raft"):
+            m.set_peers(["127.0.0.1:1", "127.0.0.1:2"])
+    finally:
+        m.http.stop()
+    with pytest.raises(NotImplementedError, match="gRPC"):
+        MasterClient("127.0.0.1:1", grpc_address="127.0.0.1:2")
+    sh = ShellContext("127.0.0.1:1")
+    with pytest.raises(NotImplementedError, match="filer"):
+        sh.volume_fsck("127.0.0.1:8888")
+    assert sh._grpc_client("127.0.0.1:2") is None
