@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py [--volume-mb 1024] [--alt-volume-mb 256]
                           [--batch-volumes 64] [--batch-volume-mb 32]
+                          [--cluster-volume-mb 256] [--cli-volume-mb 1000]
                           [--seed 0]
 
 Phases, each printing one JSON line:
-  1. device      card name and `nvidia-smi` name / power limit
+  1. device      card name and `nvidia-smi` name / power limit; then the
+                 `packages` line: whether grpc, google.protobuf and
+                 cryptography import on this machine, and their versions
   2. build       compiles csrc/gf_apply.cu and csrc/mxu_apply.cu (nvcc,
                  sm_90a), csrc/crc32c.cpp and csrc/rs_cpu.cpp (g++, the host
                  coder) from this checkout, in parallel; prints the ptxas
@@ -109,7 +112,8 @@ Phases, each printing one JSON line:
   20. cluster    the port's own cluster: its MasterServer (1024 MiB volume
                  size limit, default repair settings), four of its
                  VolumeServers on the card on racks r0 / r1 of dc1, its
-                 MasterClient and ShellContext. --cluster-volume-mb of
+                 MasterClient and ShellContext, all in this process.
+                 --cluster-volume-mb (256; the cli phase runs 1000) of
                  seeded needles uploaded through client.operation into the
                  one volume the master grows; ec.encode (K1 on the source,
                  one launch per batch; the 14 spread shards sha256-equal to
@@ -124,6 +128,32 @@ Phases, each printing one JSON line:
                  read back through client.operation. Per step: wall time,
                  MB/s, GET p50 / p99, remote interval reads, master lookups
                  and reconstructs
+  21. cli        the port from its command line, each server in its own
+                 process: three `python -m seaweedfs_tpu_torch.cli master
+                 -peers A,B,C -volumeSizeLimitMB 1024` (Raft) and four
+                 `... volume -mserver A,B,C -rack r0|r1` on the card (the
+                 default coder, K1), started through this script's
+                 `volume-child` entry, which reports each process's kernel
+                 launch counts in a JSON file (reset with SIGUSR1). One
+                 leader elected and every server registered with it;
+                 `benchmark -n 4096 -size 1024 -concurrency 16`;
+                 --cli-volume-mb (1000) of seeded needles uploaded through
+                 client.operation; `fix` on a copy of the sealed .dat,
+                 held against the server's .idx; `ec encode` (K1 on the
+                 source, one launch per batch; shards sha256-equal to
+                 CpuCoderMT's); GETs on 1 and 16 threads; the server
+                 holding the most shards SIGKILLed; degraded GETs on 1 and
+                 16 threads (one K1 launch per interval, counted on each
+                 server); the Raft leader SIGKILLed, a new leader elected
+                 and the live servers re-registered (the failover time);
+                 one more upload, its volume id and key never minted
+                 before; `lock` / `ec.rebuild` / `unlock` piped into `weed
+                 shell` (K1 on the rebuilder, sha256-equal; any `error:`
+                 fails); GETs; `ec decode` (the .dat sha256-equal to the
+                 source's); every needle read back and four through `weed
+                 download`. Each server holds a CUDA context (nvidia-smi
+                 lists one compute app per process; its /dev/nvidiaN is
+                 open). Any nonzero exit of a CLI process fails the phase
 Then the memory line, the kernel summary line, the `nvidia-smi` line, and
 the result line {"ok": true, "device": {...}} last. Each path phase is
 driven with every kernel entry's launch counter set to 0 just before it
@@ -140,6 +170,7 @@ import hashlib
 import json
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -171,6 +202,20 @@ def smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def packages() -> dict:
+    """Whether the gRPC plane's packages import here, and their versions
+    (the port's gRPC slice needs them; nothing else imports them)."""
+    import importlib
+    out = {}
+    for mod in ("grpc", "google.protobuf", "cryptography"):
+        try:
+            out[mod] = getattr(importlib.import_module(mod), "__version__",
+                               "unknown version")
+        except ImportError as e:
+            out[mod] = f"not importable: {e}"
+    return out
 
 
 def sha256_file(path: str) -> str:
@@ -768,7 +813,12 @@ class PathCounts:
         """Record the phase's counts (a phase driven in several steps adds
         them up); the step must have launched `kernel` once per batch and
         the other entries never."""
-        got = self.now()
+        return self.add(phase, kernel, batches, self.now())
+
+    def add(self, phase: str, kernel: str, batches: int,
+            got: dict[str, int]) -> dict:
+        """`read` of counts `got` that were taken elsewhere (the cli
+        phase's server processes)."""
         prev = self.by_phase.get(phase, dict.fromkeys(self.KERNELS, 0))
         self.by_phase[phase] = {k: prev[k] + got[k] for k in self.KERNELS}
         others = [k for k in self.KERNELS if k != kernel]
@@ -1769,10 +1819,7 @@ def lrc_volume(work: str, volume_mb: int, seed: int, counts: PathCounts,
 def _dead_master() -> str:
     """host:port of a local port that nothing listens on (bound, then
     closed): the server's master calls fail at once with a refusal."""
-    import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return f"127.0.0.1:{s.getsockname()[1]}"
+    return f"127.0.0.1:{_free_ports(1)[0]}"
 
 
 def _vs_json(url: str, path: str, body=None, method: str = "POST"):
@@ -2606,6 +2653,617 @@ def cluster_phase(work: str, volume_mb: int, seed: int,
          repaired_sha256_equal=True, bodies_equal=True)
 
 
+CLI_MASTERS = 3
+CLI_SERVERS = 4
+
+
+def volume_child(counts_path: str, argv: list[str]) -> int:
+    """The entry that `cli_phase` starts each `weed volume` process
+    through: it reports the process's kernel launch counts (the wrappers'
+    own counters, as PathCounts reads them in this process) into the JSON
+    file `counts_path`, rewritten after every wrapper call and on SIGUSR1,
+    which sets the counts to 0; then it runs
+    seaweedfs_tpu_torch.cli.main(argv). The server's code keeps no count
+    of its own, and a SIGKILLed server leaves its last report."""
+    from seaweedfs_tpu_torch import cli
+    from seaweedfs_tpu_torch.ops import rs_cuda, rs_mxu
+    lock = threading.RLock()
+    resets = [0]
+
+    def report():
+        with lock:
+            tmp = counts_path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump({**PathCounts.now(), "resets": resets[0]}, f)
+            os.replace(tmp, counts_path)
+
+    def reported(fn):
+        def call(*a, **kw):
+            try:
+                return fn(*a, **kw)
+            finally:
+                report()
+        return call
+
+    def reset(signum, frame):
+        with lock:
+            PathCounts.start()
+            resets[0] += 1
+            report()
+
+    rs_cuda.gf_apply = reported(rs_cuda.gf_apply)
+    rs_cuda.gf_apply_batch = reported(rs_cuda.gf_apply_batch)
+    rs_mxu.mxu_apply = reported(rs_mxu.mxu_apply)
+    signal.signal(signal.SIGUSR1, reset)
+    report()
+    cli.main(argv)
+    return 0
+
+
+def _free_ports(n: int) -> list[int]:
+    """n local ports that were free a moment ago (bound, then closed), in
+    ascending order."""
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return sorted(s.getsockname()[1] for s in socks)
+    finally:
+        for s in socks:
+            s.close()
+
+
+def _smi_apps() -> list[str]:
+    """`nvidia-smi --query-compute-apps=pid,used_memory`: one line per
+    process holding a CUDA context on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return [ln.strip() for ln in out.splitlines() if ln.strip()]
+
+
+def _holds_card(pid: int) -> bool:
+    """Whether process `pid` has a CUDA device node (/dev/nvidiaN) open,
+    which its CUDA context keeps open."""
+    import re
+    fd_dir = f"/proc/{pid}/fd"
+    for fd in os.listdir(fd_dir):
+        try:
+            if re.fullmatch(r"/dev/nvidia\d+",
+                            os.readlink(os.path.join(fd_dir, fd))):
+                return True
+        except OSError:
+            continue
+    return False
+
+
+class _CliCluster:
+    """The `cli` phase's processes: CLI_MASTERS `weed master -peers`
+    processes and CLI_SERVERS `weed volume` processes (through
+    volume_child), their logs under `root`, each server's launch counts
+    in a JSON file there."""
+
+    def __init__(self, root: str):
+        self.root = root
+        self.repo = os.path.dirname(os.path.abspath(__file__))
+        self.env = dict(os.environ, PYTHONPATH=self.repo)
+        self.masters: dict[str, subprocess.Popen] = {}
+        self.servers: dict[str, subprocess.Popen] = {}
+        self.rack: dict[str, str] = {}
+        self.killed: set[str] = set()
+        self.resets: dict[str, int] = {}
+        self.start_s: dict[str, float] = {}
+
+    def _spawn(self, name: str, argv: list[str]) -> subprocess.Popen:
+        log = open(os.path.join(self.root, f"{name}.log"), "w")
+        try:
+            return subprocess.Popen(argv, cwd=self.repo, env=self.env,
+                                    stdout=log, stderr=subprocess.STDOUT,
+                                    stdin=subprocess.DEVNULL)
+        finally:
+            log.close()
+
+    def cli(self, *args: str, stdin: str = "", timeout: float = 600.0):
+        """Run one `python -m seaweedfs_tpu_torch.cli` command to its end;
+        a nonzero exit fails the phase. Returns (stdout, seconds)."""
+        t0 = time.monotonic()
+        p = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch.cli",
+                            *args], cwd=self.repo, env=self.env,
+                           input=stdin, capture_output=True, text=True,
+                           timeout=timeout)
+        if p.returncode != 0:
+            raise AssertionError(f"cli {args[0]} exited {p.returncode}: "
+                                 f"{p.stderr[-2000:]}")
+        return p.stdout, time.monotonic() - t0
+
+    def start_masters(self, volume_limit_mb: int) -> list[str]:
+        ports = _free_ports(CLI_MASTERS)
+        urls = [f"127.0.0.1:{p}" for p in ports]
+        for url, port in zip(urls, ports):
+            mdir = os.path.join(self.root, f"m{port}")
+            os.makedirs(mdir)
+            self.start_s[url] = time.monotonic()
+            self.masters[url] = self._spawn(f"master_{port}", [
+                sys.executable, "-m", "seaweedfs_tpu_torch.cli", "master",
+                "-port", str(port), "-mdir", mdir, "-peers", ",".join(urls),
+                "-volumeSizeLimitMB", str(volume_limit_mb)])
+        return urls
+
+    def start_servers(self, masters: list[str]) -> list[str]:
+        ports = _free_ports(CLI_SERVERS)
+        urls = []
+        for i, port in enumerate(ports):
+            url = f"127.0.0.1:{port}"
+            urls.append(url)
+            self.rack[url] = f"r{i % 2}"
+            self.resets[url] = 0
+            self.start_s[url] = time.monotonic()
+            self.servers[url] = self._spawn(f"volume_{port}", [
+                sys.executable, os.path.abspath(__file__), "volume-child",
+                self.counts_path(url), "volume", "-port", str(port),
+                "-dir", os.path.join(self.root, f"v{port}"),
+                "-mserver", ",".join(masters), "-rack", self.rack[url],
+                "-dataCenter", "dc1"])
+        return urls
+
+    def counts_path(self, url: str) -> str:
+        return os.path.join(self.root,
+                            f"counts_{url.rsplit(':', 1)[1]}.json")
+
+    def vdir(self, url: str) -> str:
+        return os.path.join(self.root, f"v{url.rsplit(':', 1)[1]}")
+
+    def live_servers(self) -> list[str]:
+        return [u for u in self.servers if u not in self.killed]
+
+    def check_running(self) -> None:
+        for url, p in {**self.masters, **self.servers}.items():
+            if url not in self.killed and p.poll() is not None:
+                raise AssertionError(f"{url} exited {p.returncode}")
+
+    def wait_up(self, urls: list[str], path: str) -> dict[str, float]:
+        """Wait for each process to answer `path`; returns its start-up
+        seconds (spawn to first answer: the interpreter, torch and the
+        package imported, the card opened, the socket bound)."""
+        from seaweedfs_tpu_torch.utils.httpd import http_call
+        took = {}
+        for url in urls:
+            def up():
+                self.check_running()
+                try:
+                    return http_call("GET", f"http://{url}{path}",
+                                     timeout=2)[0] == 200
+                except (ConnectionError, OSError):
+                    return False
+            _wait_for(up, f"{url} to answer {path}", timeout=180.0)
+            took[url] = time.monotonic() - self.start_s[url]
+        return took
+
+    def leader(self) -> str:
+        """The one master that every live master names as leader and that
+        says it leads."""
+        from seaweedfs_tpu_torch.utils.httpd import HttpError, http_json
+
+        def agreed():
+            self.check_running()
+            seen = set()
+            for url in self.masters:
+                if url in self.killed:
+                    continue
+                try:
+                    st = http_json("GET", f"http://{url}/cluster/status",
+                                   timeout=2)
+                except (ConnectionError, OSError, HttpError):
+                    return None
+                seen.add((st.get("Leader"), st.get("IsLeader")
+                          and st.get("Leader") == url))
+            leaders = {ld for ld, _ in seen}
+            if len(leaders) == 1 and any(me for _, me in seen):
+                return leaders.pop()
+            return None
+
+        return _wait_for(agreed, "one Raft leader", timeout=60.0)
+
+    def registered(self, leader: str) -> set[str]:
+        from seaweedfs_tpu_torch.utils.httpd import http_json
+        topo = http_json("GET", f"http://{leader}/dir/status",
+                         timeout=5)["Topology"]
+        return {n["id"] for dc in topo["data_centers"]
+                for r in dc["racks"] for n in r["nodes"]}
+
+    def reset_counts(self) -> None:
+        """Every live server's launch counts set to 0 (SIGUSR1), and
+        wait until each has reported it."""
+        for url in self.live_servers():
+            self.resets[url] += 1
+            self.servers[url].send_signal(signal.SIGUSR1)
+        for url in self.live_servers():
+            _wait_for(lambda: self.counts(url).get("resets") ==
+                      self.resets[url], f"{url} to reset its counts")
+
+    def counts(self, url: str) -> dict:
+        try:
+            with open(self.counts_path(url)) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return {}
+
+    def recovered(self, url: str, vid: int) -> int:
+        from seaweedfs_tpu_torch.utils.httpd import http_json
+        st = http_json("GET", f"http://{url}/admin/ec/shard_stat"
+                              f"?volumeId={vid}", timeout=30)
+        return sum(st["recover_stats"].values())
+
+    def kill(self, url: str) -> None:
+        procs = self.servers if url in self.servers else self.masters
+        procs[url].kill()
+        procs[url].wait(timeout=60)
+        self.killed.add(url)
+
+    def stop(self) -> dict[str, int]:
+        """SIGTERM the volume servers, then the masters (a server's drain
+        announcement needs a master); kill what outlives 60 s. Returns
+        each process's exit code."""
+        codes = {}
+        for group in (self.servers, self.masters):
+            for p in group.values():
+                if p.poll() is None:
+                    p.send_signal(signal.SIGTERM)
+            for url, p in group.items():
+                try:
+                    codes[url] = p.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    codes[url] = p.wait(timeout=60)
+                    codes[url] = f"killed after SIGTERM ({codes[url]})"
+        return codes
+
+
+def _repl_outputs(out: str) -> list:
+    """The JSON each command printed in a piped `weed shell` run (the
+    text after each "> " prompt); any `error:` line fails the phase (the
+    REPL prints it and carries on)."""
+    chunks = out.split("> ")[1:]
+    for chunk in chunks:
+        if chunk.lstrip().startswith("error:"):
+            raise AssertionError(f"weed shell: {chunk.strip()[:2000]}")
+    return [json.loads(c) for c in chunks if c.strip()]
+
+
+def _live_index(idx_path: str) -> dict:
+    """{key: (offset, size)} of the live entries of a .idx, replayed in
+    order (a tombstone removes its key)."""
+    from seaweedfs_tpu_torch.storage import idx as idxmod
+    from seaweedfs_tpu_torch.storage import types as t
+    live = {}
+    for key, off, size in idxmod.iter_index(idx_path):
+        if off != 0 and t.size_is_valid(size):
+            live[key] = (off, size)
+        else:
+            live.pop(key, None)
+    return live
+
+
+def cli_phase(work: str, volume_mb: int, seed: int,
+              counts: PathCounts) -> None:
+    """21. The port from its command line, each server in its own process:
+    three `weed master -peers` (Raft), four `weed volume` on the card
+    (default coder, K1), driven by `weed benchmark`, client.operation,
+    `weed fix`, `weed ec`, `weed shell` and `weed download`, through the
+    loss of the server holding the most shards and a SIGKILL of the Raft
+    leader."""
+    import numpy as np
+    from seaweedfs_tpu_torch.client import operation
+    from seaweedfs_tpu_torch.client.wdclient import MasterClient
+    from seaweedfs_tpu_torch.ops.rs_cpu import CpuCoderMT
+    from seaweedfs_tpu_torch.storage.erasure_coding import encoder, layout
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+    total = layout.TOTAL_SHARDS_COUNT
+    root = os.path.join(work, "cli")
+    os.makedirs(root)
+    cl = _CliCluster(root)
+    steps: dict = {}
+    launches: dict = {}
+    contexts: dict = {}
+    mc = None
+    try:
+        # 1. three masters with -peers, four volume servers on the card
+        masters = cl.start_masters(1024)
+        servers = cl.start_servers(masters)
+        startup = cl.wait_up(masters, "/cluster/status")
+        startup.update(cl.wait_up(servers, "/status"))
+        t0 = time.monotonic()
+        leader = cl.leader()
+        _wait_for(lambda: cl.registered(leader) == set(servers),
+                  "the volume servers to register with the leader",
+                  timeout=60.0)
+        steps["elect_and_register_s"] = time.monotonic() - t0
+        name = {u: i for i, u in enumerate(servers)}
+
+        def on_card(step: str) -> None:
+            """Each live `weed volume` process holds the card: one
+            compute app per process with a CUDA context (this one and
+            the live servers), each server with /dev/nvidiaN open."""
+            apps = _smi_apps()
+            live = cl.live_servers()
+            holding = {name[u]: _holds_card(cl.servers[u].pid)
+                       for u in live}
+            contexts[step] = {"compute_apps": apps, "servers": holding}
+            if len(apps) != 1 + len(live) or not all(holding.values()):
+                raise AssertionError(f"{step}: compute apps {apps}, "
+                                     f"servers holding the card {holding}")
+
+        on_card("started")
+
+        def launched(step: str, expect: dict[str, int]) -> dict:
+            """Each live server's K1 launches in the step, exactly
+            `expect` (url -> launches; 0 where absent), and no other
+            kernel entry; the total joins the phase's count."""
+            got = {u: cl.counts(u) for u in cl.live_servers()}
+            per = {name[u]: c.get("gf_apply") for u, c in got.items()}
+            want = {name[u]: expect.get(u, 0) for u in got}
+            others = {name[u]: (c.get("mxu_apply"), c.get("gf_apply_batch"))
+                      for u, c in got.items()}
+            if per != want or any(any(o) for o in others.values()):
+                raise AssertionError(f"{step}: K1 launches {per}, expected "
+                                     f"{want}; other entries {others}")
+            n = sum(want.values())
+            if n:
+                counts.add("cli", "gf_apply", n, {
+                    "gf_apply": n, "mxu_apply": 0, "gf_apply_batch": 0})
+            return per
+
+        # 2. weed benchmark
+        cl.reset_counts()
+        out, wall = cl.cli("benchmark", "-master", leader, "-n", "4096",
+                           "-size", "1024", "-concurrency", "16")
+        bench = [json.loads(ln) for ln in out.splitlines()
+                 if ln.startswith("{")]
+        if [b["op"] for b in bench] != ["write", "read"]:
+            raise AssertionError(f"weed benchmark printed {out[-2000:]}")
+        launched("benchmark", {})
+        steps["benchmark"] = {"seconds": wall, **{
+            b["op"]: {k: b[k] for k in ("requests_per_sec",
+                                        "transfer_mb_per_sec", "p50_ms",
+                                        "p99_ms")} for b in bench}}
+
+        # 3. config 1's needle mix through client.operation
+        mc = MasterClient(masters)
+        rng = np.random.default_rng(seed + 21)
+        sizes = []
+        while sum(sizes) < volume_mb << 20:
+            sizes.append(int(rng.integers(1 << 10, (4 << 20) + 1)))
+        blob = rng.bytes(sum(sizes))
+        mv = memoryview(blob)
+        files: list = []
+        off = 0
+        cl.reset_counts()
+        t0 = time.monotonic()
+        for size in sizes:
+            data = bytes(mv[off:off + size])
+            off += size
+            files.append((operation.upload_data(mc, data).fid, data))
+        wall = time.monotonic() - t0
+        del blob, mv
+        payload = sum(len(d) for _, d in files)
+        launched("upload", {})
+        vids = sorted({int(fid.split(",")[0]) for fid, _ in files})
+        if len(vids) != 1:
+            raise AssertionError(f"the leader grew volumes {vids}, not one")
+        vid = vids[0]
+        steps["upload"] = _step(payload, wall, needles=len(files))
+
+        # 4. weed fix on a copy of the source's sealed .dat, held against
+        # the server's .idx
+        src = next(u for u in servers
+                   if os.path.exists(os.path.join(cl.vdir(u), f"{vid}.dat")))
+        http_json("POST", f"http://{src}/admin/mark_readonly",
+                  {"volume_id": vid, "read_only": True})
+        base = os.path.join(cl.vdir(src), str(vid))
+        dat_size = os.path.getsize(base + ".dat")
+        keep = os.path.join(root, "source")
+        os.makedirs(keep)
+        os.link(base + ".dat", os.path.join(keep, f"{vid}.dat"))
+        fixdir = os.path.join(root, "fix")
+        os.makedirs(fixdir)
+        os.link(base + ".dat", os.path.join(fixdir, f"{vid}.dat"))
+        out, wall = cl.cli("fix", os.path.join(fixdir, str(vid)))
+        fixed = json.loads(out.splitlines()[-1])
+        live = _live_index(base + ".idx")
+        if fixed["crc_errors"] or fixed["live_entries"] != len(live) or \
+                _live_index(os.path.join(fixdir, f"{vid}.idx")) != live:
+            raise AssertionError(f"weed fix: {fixed}, the server's .idx has "
+                                 f"{len(live)} live entries")
+        steps["fix"] = _step(dat_size, wall, live_entries=len(live))
+
+        # 5. weed ec encode: generate on the source (K1), spread
+        cl.reset_counts()
+        out, wall = cl.cli("ec", "encode", "-master", leader,
+                           "-volumeId", str(vid))
+        enc = json.loads(out)
+        batches = _encode_batches(dat_size, layout.DATA_SHARDS_COUNT)
+        launches["encode"] = launched("encode", {src: batches})
+        if [r["vid"] for r in enc] != [vid] or enc[0]["source"] != src:
+            raise AssertionError(f"weed ec encode printed {enc}")
+        placement = {name[u]: s for u, s in enc[0]["placement"].items()}
+        holders = _ec_holders(mc, vid)
+        shard_sha = {}
+        for sid in range(total):
+            if len(holders.get(sid, [])) != 1 or \
+                    sid not in placement[name[holders[sid][0]]]:
+                raise AssertionError(f"shard {sid}: {holders}, {placement}")
+            shard_sha[sid] = sha256_file(os.path.join(
+                cl.vdir(holders[sid][0]), f"{vid}{layout.shard_ext(sid)}"))
+        cpu_sha = cpu_shard_sha(os.path.join(keep, str(vid)), dat_size,
+                                CpuCoderMT())
+        if [shard_sha[s] for s in range(total)] != cpu_sha:
+            raise AssertionError("spread shards differ from CpuCoderMT's")
+        dat_sha = sha256_file(os.path.join(keep, f"{vid}.dat"))
+        shutil.rmtree(keep)
+        steps["encode"] = _step(dat_size, wall, batches=batches)
+
+        def gets(step: str, urls: list[str], threads: int) -> dict:
+            """GET every needle on `threads` threads; K1 launched once per
+            interval each server reconstructs."""
+            before = {u: cl.recovered(u, vid) for u in cl.live_servers()}
+            cl.reset_counts()
+            wall, took = _cluster_gets(files, urls, threads)
+            rec = {u: cl.recovered(u, vid) - before[u]
+                   for u in cl.live_servers()}
+            launches[step] = launched(step, rec)
+            steps[step] = _step(payload, wall, reconstructs=sum(rec.values()),
+                                **_ms_stats(took))
+            return rec
+
+        # 6. GETs from the spread volume, 1 and 16 client threads
+        urls = sorted({u for us in holders.values() for u in us})
+        for step, threads in (("get_1", 1), ("get_16", 16)):
+            if sum(gets(step, urls, threads).values()):
+                raise AssertionError(f"{step}: a reconstruct on a healthy "
+                                     "volume")
+        on_card("before_loss")
+
+        # 7. SIGKILL the server holding the most shards
+        held = {i: (len(s), 0 in s) for i, s in placement.items()}
+        victim = servers[max(held, key=held.get)]
+        cl.kill(victim)
+        lost = sorted(placement[name[victim]])
+
+        # 8. degraded GETs, 1 and 16 client threads
+        urls = sorted(cl.live_servers())
+        for step, threads in (("get_degraded_1", 1),
+                              ("get_degraded_16", 16)):
+            rec = gets(step, urls, threads)
+            if threads == 1 and not sum(rec.values()):
+                raise AssertionError(f"{step}: nothing reconstructed")
+
+        # 9. SIGKILL the Raft leader: a new leader, the servers back
+        keys = {int(fid.split(",")[1][:-8], 16) for fid, _ in files}
+        old_leader = leader
+        t0 = time.monotonic()
+        cl.kill(old_leader)
+        leader = cl.leader()
+        elected = time.monotonic()
+        _wait_for(lambda: cl.registered(leader) == set(cl.live_servers()),
+                  "the live servers to re-register with the new leader",
+                  timeout=60.0)
+        steps["failover"] = {
+            "old_leader": old_leader, "new_leader": leader,
+            "elected_s": elected - t0,
+            "servers_registered_s": time.monotonic() - t0}
+
+        # 10. one more needle through `weed upload` (a fresh client: this
+        # process's MasterClient still pools fids of the encoded volume
+        # for its 10 s pool TTL): no volume id or key minted before
+        data = rng.bytes(100_000)
+        path = os.path.join(root, "after_failover.bin")
+        with open(path, "wb") as f:
+            f.write(data)
+        cl.reset_counts()
+        out, _ = cl.cli("upload", "-master", leader, path)
+        fid = json.loads(out.splitlines()[-1])["fid"]
+        launched("upload_after_failover", {})
+        vid2, key2 = int(fid.split(",")[0]), int(fid.split(",")[1][:-8], 16)
+        if vid2 <= vid or key2 in keys:
+            raise AssertionError(f"{fid} after the failover: volume {vid} "
+                                 f"and {len(keys)} keys were minted before")
+        after = (fid, data)
+        steps["upload_after_failover"] = {"fid": fid,
+                                          "key_above_every_earlier": key2 >
+                                          max(keys)}
+
+        # 11. lock / ec.rebuild / unlock piped into weed shell
+        cl.reset_counts()
+        out, wall = cl.cli("shell", "-master", leader,
+                           stdin="lock\nec.rebuild\nunlock\n")
+        replies = _repl_outputs(out)
+        plans = replies[1] if len(replies) == 3 else None
+        if replies[0] != {"locked": True} or replies[-1] != {
+                "locked": False} or not plans or len(plans) != 1 or \
+                sorted(plans[0].get("rebuilt", [])) != lost:
+            raise AssertionError(f"weed shell printed {out[-3000:]}")
+        rebuilder = plans[0]["rebuilder"]
+        shard_size = os.path.getsize(os.path.join(
+            cl.vdir(rebuilder), f"{vid}{layout.shard_ext(lost[0])}"))
+        batches = -(-shard_size // encoder.DEFAULT_BATCH_SIZE)
+        launches["rebuild"] = launched("rebuild", {rebuilder: batches})
+        for sid in lost:
+            if sha256_file(os.path.join(
+                    cl.vdir(rebuilder),
+                    f"{vid}{layout.shard_ext(sid)}")) != shard_sha[sid]:
+                raise AssertionError(f"rebuilt shard {sid} differs")
+        steps["rebuild"] = _step(shard_size * len(lost), wall,
+                                 batches=batches, rebuilder=name[rebuilder])
+
+        # 12. GETs after the rebuild
+        holders = _ec_holders(mc, vid)
+        if sorted(s for s, us in holders.items() if us) != list(range(total)):
+            raise AssertionError(f"after ec.rebuild: {holders}")
+        gets("get_rebuilt", sorted({u for us in holders.values()
+                                    for u in us}), 1)
+        on_card("after_rebuild")
+
+        # 13. weed ec decode
+        cl.reset_counts()
+        out, wall = cl.cli("ec", "decode", "-master", leader,
+                           "-volumeId", str(vid))
+        dec = json.loads(out)
+        launched("decode", {})
+        if sha256_file(os.path.join(cl.vdir(dec["collector"]),
+                                    f"{vid}.dat")) != dat_sha:
+            raise AssertionError("the decoded .dat differs from the source's")
+        steps["decode"] = _step(dat_size, wall, collector=name[dec["collector"]])
+
+        # 14. every needle read back; a sample through weed download
+        def readable():
+            mc.invalidate(vid)
+            try:
+                return mc.lookup_volume(vid)
+            except Exception:
+                return None
+
+        _wait_for(readable, "the decoded volume to be looked up")
+        cl.reset_counts()
+        t0 = time.monotonic()
+        for fid, data in files + [after]:
+            if operation.read_data(mc, fid) != data:
+                raise AssertionError(f"read_data {fid} after ec.decode")
+        steps["read_back"] = _step(payload, time.monotonic() - t0)
+        by_size = sorted(files, key=lambda f: len(f[1]))
+        dl_s = []
+        for fid, data in (by_size[0], by_size[len(by_size) // 2],
+                          by_size[-1], after):
+            path = os.path.join(root, "download.bin")
+            _, wall = cl.cli("download", "-master", leader, "-output", path,
+                             fid)
+            dl_s.append(wall)
+            with open(path, "rb") as f:
+                if f.read() != data:
+                    raise AssertionError(f"weed download {fid} differs")
+        launched("read_back", {})
+        steps["download_s"] = dl_s
+    finally:
+        if mc is not None:
+            mc.stop()
+        codes = cl.stop()
+    bad = {u: c for u, c in codes.items()
+           if u not in cl.killed and c != 0}
+    if bad:
+        raise AssertionError(f"CLI processes exited {bad}")
+    emit("cli", volume_mb=volume_mb, masters=len(masters),
+         servers=len(servers), racks={name[u]: cl.rack[u] for u in servers},
+         needles=len(files), payload_bytes=payload, dat_bytes=dat_size,
+         volume_id=vid, placement=placement, victim=name[victim], lost=lost,
+         startup_s={(f"master{masters.index(u)}" if u in cl.masters
+                     else f"volume{name[u]}"): s
+                    for u, s in startup.items()},
+         steps=steps, launches=launches, cuda_contexts=contexts,
+         shards_sha256_equal_to_cpu=total, rebuilt_sha256_equal=True,
+         decoded_dat_sha256_equal=True, bodies_equal=True)
+
+
 def kernel_entry(name: str, source: str, replaces: str, counts: PathCounts,
                  worst: int, row: dict, timing: list[dict]) -> dict:
     launches = counts.total(name)
@@ -2664,10 +3322,14 @@ def main() -> int:
     ap.add_argument("--batch-volume-mb", type=int, default=32,
                     help="MiB of needle payload in each of them "
                          "(default 32)")
-    ap.add_argument("--cluster-volume-mb", type=int, default=1000,
+    ap.add_argument("--cluster-volume-mb", type=int, default=256,
                     help="MiB of needle payload uploaded to the cluster "
+                         "phase's one volume (default 256; the cli phase "
+                         "carries the full width)")
+    ap.add_argument("--cli-volume-mb", type=int, default=1000,
+                    help="MiB of needle payload uploaded to the cli "
                          "phase's one volume (default 1000, inside the "
-                         "master's 1024 MiB volume size limit)")
+                         "masters' 1024 MiB volume size limit)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if args.batch_volumes < len(BATCH_LOSSES):
@@ -2682,6 +3344,7 @@ def main() -> int:
     smi = smi_line()
     emit("device", name=name, nvidia_smi=smi, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda)
+    emit("packages", **packages())
     phase_build()
     worst_gf = phase_kernel(args.seed)
     worst_mxu = phase_kernel_mxu(args.seed)
@@ -2715,6 +3378,7 @@ def main() -> int:
         server_phase(work, args.volume_mb, args.alt_volume_mb, args.seed,
                      counts, batch_counts)
         cluster_phase(work, args.cluster_volume_mb, args.seed, counts)
+        cli_phase(work, args.cli_volume_mb, args.seed, counts)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit("memory", max_memory_allocated=torch.cuda.max_memory_allocated(0),
@@ -2741,4 +3405,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["volume-child"]:  # a cli-phase server process
+        sys.exit(volume_child(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -22,17 +22,12 @@ the high-water mark instead of double-granting. Holders mint fids
 locally from their range; the master only re-enters the per-PUT path
 when no leased holder is reachable.
 
-The port's copy of seaweedfs_tpu/server/master.py, the same code but for
-the two planes it does not have yet, each raising NotImplementedError:
-  - the gRPC plane (server/master_grpc.py): ``grpc_port`` raises in the
-    constructor, before a socket is bound;
-  - Raft HA (cluster/raft.py): ``set_peers`` raises, so this master runs
-    alone and always leads; the /raft/* and /cluster/raft/{add,remove}
-    routes answer 503 "raft not configured", as a single reference
-    master does.
-Like the reference's master it takes no device: repairs run on the
-volume servers, whose coder is the card's. It imports nothing of that
-package.
+The port's copy of seaweedfs_tpu/server/master.py, the same code, Raft HA
+(``set_peers``, cluster/raft.py) included, but for the gRPC plane
+(server/master_grpc.py): ``grpc_port`` raises NotImplementedError in the
+constructor, before a socket is bound. Like the reference's master it
+takes no device: repairs run on the volume servers, whose coder is the
+card's. It imports nothing of that package.
 """
 
 from __future__ import annotations
@@ -334,10 +329,21 @@ class MasterServer:
 
     # ---- HA ----
     def set_peers(self, peers: list[str]) -> None:
-        """Configure the master group and start raft: not ported yet."""
-        raise NotImplementedError(
-            "Raft HA (cluster/raft.py) is not ported yet: the port's "
-            "master runs alone (ROADMAP.md queue 1)")
+        """Configure the master group (urls incl. self) and start raft."""
+        from seaweedfs_tpu_torch.cluster.raft import RaftNode
+        self.peers = sorted(set(peers) | {self.url})
+        if self.raft is not None:
+            self.raft.stop()
+        import os
+        state_path = (os.path.join(self.meta_dir, "raft_state.json")
+                      if self.meta_dir else "")
+        self.raft = RaftNode(
+            self.url, self.peers,
+            apply_fn=self._apply_raft_command,
+            snapshot_fn=self._raft_snapshot_state,
+            restore_fn=self._restore_raft_snapshot,
+            state_path=state_path)
+        self.raft.start()
 
     def _raft_snapshot_state(self) -> dict:
         with self._lease_lock:
@@ -426,7 +432,10 @@ class MasterServer:
         return self.url
 
     def is_leader(self) -> bool:
-        return self.raft is None  # set_peers is not ported
+        if self.raft is not None:
+            from seaweedfs_tpu_torch.cluster.raft import LEADER
+            return self.raft.state == LEADER
+        return True
 
     def _not_leader(self) -> Response:
         return Response({"error": "not leader", "leader": self.leader},

@@ -1,0 +1,338 @@
+"""Interactive admin shell (reference weed/shell/shell_liner.go).
+
+The port's copy of seaweedfs_tpu/shell/repl.py: the same commands, help
+text and output, run on the port's ShellContext. The command families
+that need a filer (``fs.*``, ``remote.*``, ``s3.*``, ``mq.*`` and
+``volume.fsck``) raise NotImplementedError naming the filer slice, and
+``mount.configure`` the mount slice: neither is ported yet. It takes no
+device and imports nothing of that package.
+"""
+
+from __future__ import annotations
+
+import json
+import shlex
+
+from seaweedfs_tpu_torch.shell.commands import ShellContext
+
+HELP = """commands:
+  fs.ls/cat/rm/mkdir/mv/du/tree <path> [..]   filer namespace ops
+  fs.cd <dir> / fs.pwd              relative paths resolve against cwd
+  fs.meta.notify [-root /p]         resend subtree to notification queue
+  fs.configure -locationPrefix /p [-collection C] [-ttl T] [-readOnly] [-delete]
+  remote.configure -name N [-type local] [-root DIR] | -delete N
+  remote.mount -dir /m -remote N [-path prefix]
+  remote.mount.buckets -remote N [-bucketPattern G]
+  remote.unmount -dir /m
+  remote.meta.sync -dir /m          pull remote listing into the filer
+  remote.cache/uncache -path /m/f   materialize / drop local chunk copy
+  remote.status
+  fs.meta.save [-root /p] [-o file] / fs.meta.load -i file / fs.meta.tail
+  s3.bucket.list / s3.bucket.create -name B / s3.bucket.delete -name B
+  s3.bucket.quota -name B -sizeMB N | -name B -disable
+  s3.bucket.quota.check             usage vs quota per bucket
+  volume.list                       show topology
+  volume.fix.replication [-n]      re-replicate under-replicated volumes
+  volume.check.disk [-volumeId N] [-fix]   cross-check replica contents
+  volume.fsck [-fix] [-collection C]   cross filer<->volume orphan check
+  volume.move -volumeId N -source HOST -target HOST
+  volume.copy -volumeId N -source HOST -target HOST
+  volume.mount/unmount/delete -volumeId N -node HOST
+  volume.mark -volumeId N -node HOST [-readonly|-writable]
+  volume.configure.replication -volumeId N -replication XYZ
+  volume.delete_empty [-n]          drop volumes with zero live files
+  volume.balance [-n]               even volume counts across nodes
+  volume.server.evacuate -node HOST [-n]
+  volume.server.leave -node HOST
+  volume.tail -volumeId N [-since NS]   stream appended needles
+  volume.tier.upload -volumeId N -endpoint URL -bucket B [-keepLocal]
+  volume.tier.download -volumeId N
+  volume.tier.status [-volumeId N]  tiering autopilot: temps, rungs, mover
+  volume.tier.move -volumeId N -toRung hot|ec|cloud [-endpoint URL] [-bucket B]
+  volume.tier.move [-toDiskType ssd] [-toNode HOST] [-fullPercent P] [-quietFor S] [-n]
+  volume.vacuum [threshold]         compact garbage-heavy volumes
+  cluster.ps                        list every cluster process
+  cluster.raft.ps / cluster.raft.add -peer URL / cluster.raft.remove -peer URL
+  mq.topic.list                     list broker topics (filer /topics tree)
+  s3.configure -user U -access K -secret S [-actions a,b] | -delete U
+  s3.clean.uploads [-timeAgo SECONDS]   purge stale multipart uploads
+  s3.circuitbreaker [-bucket B] [-read N] [-write N] [-disable]
+  mount.configure -collectionCapacity BYTES   statfs quota on live mounts
+  fs.meta.cat <path>                one entry's raw metadata
+  ec.encode [-volumeId N] [-collection C] [-code rs|lrc]
+  ec.rebuild [-n]
+  ec.balance [-n]
+  ec.decode -volumeId N
+  ec.scheme.status [-volumeId N]    per-volume code family (RS/LRC), group
+                                    rack alignment, last repair strategy
+  ec.repair.status                  master repair queue depth/lag/backoffs
+  ec.repair.kick                    clear backoffs, dispatch queued repairs
+  cluster.health                    per-peer circuit breakers, scrub state,
+                                    repair bandwidth budget
+  cluster.leases                    assign-lease grant table (holder, range,
+                                    epoch, remaining) + mint/refuse stats
+  cluster.qos [-node HOST:PORT] [-limit N] [-minLimit N] [-maxLimit N]
+              [-tenantRate R] [-tenantBurst B] [-enable|-disable]
+                                    per-node admission-control view; with
+                                    flags, reconfigures the governors
+  cluster.trace [-trace ID] [-minMs MS] [-limit N]
+                                    recent slow traces cluster-wide; with
+                                    -trace, that trace's stitched spans
+  cluster.shards                    filer ring + per-shard routing/cache stats
+  cluster.telemetry [-topK N] [-noPeers]
+                                    merged RED quantiles + exemplars,
+                                    hot-key leaderboard, SLO burn alerts
+  cluster.profile [-seconds N] [-topK N]
+                                    merged wall-stack window from every
+                                    node's sampler: per-class CPU share
+                                    + hottest stacks
+  volume.scrub [-node HOST:PORT] [-volumeId N]   synchronous integrity pass
+  lock / unlock
+  help / exit
+"""
+
+
+def run_repl(master_url: str) -> None:
+    sh = ShellContext(master_url)
+    print(f"connected to master {master_url}; `help` for commands")
+    while True:
+        try:
+            line = input("> ").strip()
+        except (EOFError, KeyboardInterrupt):
+            print()
+            return
+        if not line:
+            continue
+        try:
+            out = run_command(sh, line)
+        except SystemExit:
+            return
+        except Exception as e:
+            print(f"error: {type(e).__name__}: {e}")
+            continue
+        if out is not None:
+            print(json.dumps(out, default=str, indent=2))
+
+
+FILER_SLICE = ("the filer slice of ROADMAP.md queue 1 (filer/, "
+               "shell/fs_commands.py, shell/fsck.py)")
+
+
+def run_command(sh: ShellContext, line: str):
+    parts = shlex.split(line)
+    cmd, args = parts[0], parts[1:]
+    flags = _parse_flags(args)
+    apply = "-n" not in args
+    if cmd in ("exit", "quit"):
+        raise SystemExit
+    if cmd == "help":
+        print(HELP)
+        return None
+    if cmd == "lock":
+        sh.lock()
+        return {"locked": True}
+    if cmd == "unlock":
+        sh.unlock()
+        return {"locked": False}
+    if cmd.startswith(("fs.", "remote.", "s3.", "mq.")):
+        # every command of these families reads or writes the filer
+        raise NotImplementedError(
+            f"{cmd} needs a filer: {FILER_SLICE} is not ported yet")
+    if cmd == "volume.list":
+        return sh.volume_list()
+    if cmd == "volume.check.disk":
+        vid = int(flags["volumeId"]) if "volumeId" in flags else None
+        return sh.volume_check_disk(vid=vid, fix="-fix" in args)
+    if cmd == "volume.fsck":
+        raise NotImplementedError(
+            f"volume.fsck needs a filer: {FILER_SLICE} is not ported yet")
+    if cmd == "volume.move":
+        sh.volume_move(int(flags["volumeId"]), flags["source"],
+                       flags["target"], flags.get("collection", ""))
+        return {"moved": int(flags["volumeId"])}
+    if cmd == "volume.copy":
+        sh.volume_copy(int(flags["volumeId"]), flags["source"],
+                       flags["target"], flags.get("collection", ""))
+        return {"copied": int(flags["volumeId"])}
+    if cmd == "volume.mount":
+        return sh.volume_mount(int(flags["volumeId"]), flags["node"])
+    if cmd == "volume.unmount":
+        return sh.volume_unmount(int(flags["volumeId"]), flags["node"])
+    if cmd == "volume.delete":
+        return sh.volume_delete(int(flags["volumeId"]), flags["node"])
+    if cmd == "volume.mark":
+        return sh.volume_mark(int(flags["volumeId"]), flags["node"],
+                              readonly="-writable" not in args)
+    if cmd == "volume.configure.replication":
+        return sh.volume_configure_replication(int(flags["volumeId"]),
+                                               flags["replication"])
+    if cmd == "volume.delete_empty":
+        return sh.volume_delete_empty(
+            apply=apply, quiet_for=float(flags.get("quietFor", 3600)))
+    if cmd == "volume.server.evacuate":
+        return sh.volume_server_evacuate(flags["node"], apply=apply)
+    if cmd == "volume.server.leave":
+        return sh.volume_server_leave(flags["node"])
+    if cmd == "volume.tail":
+        return sh.volume_tail(int(flags["volumeId"]),
+                              since_ns=int(flags.get("since", 0)))
+    if cmd == "mount.configure":
+        # the reference pushes the quota over each mount's gRPC admin
+        # plane (mount/mount_grpc.py)
+        raise NotImplementedError(
+            "mount.configure needs the mount slice of ROADMAP.md queue 1 "
+            "(mount/ with its gRPC admin plane), not ported yet")
+    if cmd == "cluster.raft.ps":
+        from seaweedfs_tpu_torch.utils.httpd import http_json
+        return http_json("GET",
+                         f"http://{sh.master_url}/cluster/raft/ps")
+    if cmd in ("cluster.raft.add", "cluster.raft.remove"):
+        import time as _time
+
+        from seaweedfs_tpu_torch.utils.httpd import http_call
+        op = cmd.rsplit(".", 1)[1]
+        # follow not-leader hops (the 409 body carries the leader) and
+        # ride out an election in progress — membership commands often
+        # run exactly when leadership is churning
+        url = sh.master_url
+        deadline = _time.time() + 10
+        while True:
+            try:
+                status, body, _ = http_call(
+                    "POST", f"http://{url}/cluster/raft/{op}",
+                    json_body={"peer": flags["peer"]}, timeout=5)
+            except ConnectionError:
+                status, body = 0, b""
+            out = json.loads(body) if body else {}
+            if status and status < 300:
+                return out
+            if status not in (0, 409, 503):
+                # permanent (e.g. 400 cannot-remove-leader): no retry
+                raise RuntimeError(
+                    f"raft {op} failed: HTTP {status} {out}")
+            if _time.time() > deadline:
+                raise RuntimeError(
+                    f"raft {op} failed: HTTP {status} {out}")
+            if status == 409 and out.get("leader"):
+                url = out["leader"]
+            else:
+                url = sh.master_url  # re-resolve from scratch
+                _time.sleep(0.3)
+    if cmd == "volume.tier.status":
+        vid = flags.get("volumeId")
+        return sh.volume_tier_status(int(vid) if vid else None)
+    if cmd == "volume.tier.move" and flags.get("toRung"):
+        # autopilot-rung transition (hot|ec|cloud) on every replica —
+        # distinct from the disk-type move below
+        return sh.volume_tier_rung_move(
+            int(flags["volumeId"]), flags["toRung"],
+            endpoint=flags.get("endpoint", ""),
+            bucket=flags.get("bucket", "tier"))
+    if cmd == "volume.tier.move":
+        # move full+quiet volumes to a cold tier: a disk type
+        # (-toDiskType ssd), a node (-toNode), or both (reference
+        # command_volume_tier_move.go)
+        return sh.volume_tier_move(
+            to_node=flags.get("toNode", ""),
+            to_disk=flags.get("toDiskType", ""),
+            full_percent=float(flags.get("fullPercent", 95)),
+            quiet_for=float(flags.get("quietFor", 0)),
+            collection=flags.get("collection", ""),
+            apply=apply)
+    if cmd == "cluster.ps":
+        return sh.cluster_ps()
+    if cmd == "volume.tier.upload":
+        return sh.volume_tier_upload(
+            int(flags["volumeId"]), flags["endpoint"], flags["bucket"],
+            keep_local="-keepLocal" in args)
+    if cmd == "volume.tier.download":
+        return sh.volume_tier_download(int(flags["volumeId"]))
+    if cmd == "volume.fix.replication":
+        return sh.volume_fix_replication(apply=apply)
+    if cmd == "volume.balance":
+        return sh.volume_balance(apply=apply)
+    if cmd == "collection.list":
+        from seaweedfs_tpu_torch.utils.httpd import http_json
+        return http_json("GET", f"http://{sh.master_url}/col/list")
+    if cmd == "collection.delete":
+        from seaweedfs_tpu_torch.utils.httpd import http_json
+        return http_json(
+            "POST",
+            f"http://{sh.master_url}/col/delete?collection={args[0]}")
+    if cmd == "cluster.check":
+        from seaweedfs_tpu_torch.utils.httpd import http_json
+        return http_json("GET", f"http://{sh.master_url}/cluster/status")
+    if cmd == "volume.vacuum":
+        thr = float(args[0]) if args and not args[0].startswith("-") else 0.3
+        return sh.volume_vacuum(thr)
+    if cmd == "ec.encode":
+        vid = int(flags["volumeId"]) if "volumeId" in flags else None
+        return sh.ec_encode(vid=vid, collection=flags.get("collection", ""),
+                            code=flags.get("code", ""))
+    if cmd == "ec.scheme.status":
+        vid = int(flags["volumeId"]) if "volumeId" in flags else None
+        return sh.ec_scheme_status(vid=vid)
+    if cmd == "ec.rebuild":
+        return sh.ec_rebuild(apply=apply)
+    if cmd == "ec.balance":
+        return [vars(m) for m in sh.ec_balance(apply=apply)]
+    if cmd == "ec.decode":
+        return sh.ec_decode(int(flags["volumeId"]))
+    if cmd == "ec.repair.status":
+        return sh.ec_repair_status()
+    if cmd == "cluster.health":
+        return sh.cluster_health()
+    if cmd == "cluster.leases":
+        return sh.cluster_leases()
+    if cmd == "cluster.shards":
+        return sh.cluster_shards()
+    if cmd == "cluster.qos":
+        conf = {}
+        for flag, key, cast in (("limit", "limit", int),
+                                ("minLimit", "min_limit", int),
+                                ("maxLimit", "max_limit", int),
+                                ("tenantRate", "tenant_rate", float),
+                                ("tenantBurst", "tenant_burst", float)):
+            if flag in flags:
+                conf[key] = cast(flags[flag])
+        if "enable" in flags:
+            conf["enabled"] = True
+        if "disable" in flags:
+            conf["enabled"] = False
+        return sh.cluster_qos(configure=conf or None,
+                              node=flags.get("node", ""))
+    if cmd == "cluster.trace":
+        return sh.cluster_trace(
+            trace_id=flags.get("trace", ""),
+            min_ms=float(flags.get("minMs", 0) or 0),
+            limit=int(flags.get("limit", 64) or 64))
+    if cmd == "cluster.telemetry":
+        return sh.cluster_telemetry(
+            top_k=int(flags.get("topK", 10) or 10),
+            peers="noPeers" not in flags)
+    if cmd == "cluster.profile":
+        return sh.cluster_profile(
+            seconds=float(flags.get("seconds", 5) or 5),
+            top_k=int(flags.get("topK", 20) or 20))
+    if cmd == "ec.repair.kick":
+        return sh.ec_repair_kick()
+    if cmd == "volume.scrub":
+        vid = int(flags["volumeId"]) if "volumeId" in flags else None
+        return sh.volume_scrub(node=flags.get("node", ""), volume_id=vid)
+    raise ValueError(f"unknown command {cmd!r}; `help` lists commands")
+
+
+def _parse_flags(args: list[str]) -> dict:
+    out = {}
+    i = 0
+    while i < len(args):
+        a = args[i]
+        if a.startswith("-") and a != "-n":
+            key = a.lstrip("-")
+            if i + 1 < len(args) and not args[i + 1].startswith("-"):
+                out[key] = args[i + 1]
+                i += 1
+            else:
+                out[key] = "true"
+        i += 1
+    return out

@@ -62,7 +62,10 @@ def test_port_and_smoke_never_import_jax_or_reference():
                 "filer/rebalance.py", "storage/tiering.py",
                 "scrub/repair_queue.py", "server/master.py",
                 "client/wdclient.py", "client/operation.py",
-                "shell/ec_plan.py", "shell/commands.py"):
+                "shell/ec_plan.py", "shell/commands.py",
+                # the command line and master HA
+                "cli.py", "shell/repl.py", "cluster/raft.py",
+                "storage/maintenance.py"):
         assert PORT / rel in files, rel
     bad = {str(f.relative_to(REPO)): [n for n in _imported_modules(f)
                                       if _forbidden(n)]
@@ -309,28 +312,82 @@ def test_scrubber_on_a_cpu_store_takes_no_cuda_path(no_cuda, tmp_path):
 def test_control_plane_raises_for_what_is_not_ported(monkeypatch):
     """The master, client and shell take no device, and the planes they
     lack raise NotImplementedError where they are reached: the master's
-    gRPC plane (before any socket is bound) and Raft HA, the client's
-    gRPC push mode, and volume.fsck (it needs the filer). The shell
-    drives volume servers over HTTP without probing for gRPC."""
+    gRPC plane (before any socket is bound, also as `master -grpc` and
+    `volume -grpc` on the command line), the client's gRPC push mode, and
+    volume.fsck (it needs the filer). The shell drives volume servers over
+    HTTP without probing for gRPC."""
+    from seaweedfs_tpu_torch import cli
     from seaweedfs_tpu_torch.client.wdclient import MasterClient
-    from seaweedfs_tpu_torch.server import master
+    from seaweedfs_tpu_torch.server import master, volume_server
     from seaweedfs_tpu_torch.shell.commands import ShellContext
     bound = []
-    monkeypatch.setattr(master, "HttpServer",
-                        lambda *a, **kw: bound.append(a))
+    for mod in (master, volume_server):
+        monkeypatch.setattr(mod, "HttpServer",
+                            lambda *a, **kw: bound.append(a))
     with pytest.raises(NotImplementedError, match="gRPC"):
         master.MasterServer(grpc_port=19333)
+    with pytest.raises(NotImplementedError, match="gRPC"):
+        cli.main(["master", "-port", "19333", "-grpc"])
+    with pytest.raises(NotImplementedError, match="gRPC"):
+        cli.main(["volume", "-port", "19380", "-device", "cpu", "-grpc"])
     assert bound == []
     monkeypatch.undo()
-    m = master.MasterServer()
-    try:
-        with pytest.raises(NotImplementedError, match="Raft"):
-            m.set_peers(["127.0.0.1:1", "127.0.0.1:2"])
-    finally:
-        m.http.stop()
     with pytest.raises(NotImplementedError, match="gRPC"):
         MasterClient("127.0.0.1:1", grpc_address="127.0.0.1:2")
     sh = ShellContext("127.0.0.1:1")
     with pytest.raises(NotImplementedError, match="filer"):
         sh.volume_fsck("127.0.0.1:8888")
     assert sh._grpc_client("127.0.0.1:2") is None
+
+
+def test_volume_command_raises_without_cuda_before_binding(no_cuda,
+                                                           monkeypatch,
+                                                           tmp_path):
+    """`weed volume` and `weed server` take the card unless given -device
+    cpu: without a CUDA device they raise before any socket is bound,
+    whatever -coder names (a host coder too)."""
+    from seaweedfs_tpu_torch import cli
+    from seaweedfs_tpu_torch.server import master, volume_server
+    from seaweedfs_tpu_torch.utils import httpd
+    bound = []
+    for mod in (httpd, master, volume_server):
+        monkeypatch.setattr(mod, "HttpServer",
+                            lambda *a, **kw: bound.append(a))
+    for argv in (["volume", "-dir", str(tmp_path / "v")],
+                 ["volume", "-dir", str(tmp_path / "v"), "-coder", "cpu"],
+                 ["volume", "-dir", str(tmp_path / "v"), "-ecBatcher"],
+                 ["server", "-dir", str(tmp_path / "v")]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv)
+    assert bound == []
+    assert not (tmp_path / "v").exists()
+
+
+@pytest.mark.parametrize("argv,slice_", [
+    (["filer"], "the filer slice"),
+    (["s3"], "the gateway slice"),
+    (["mount", "/mnt/weed"], "the gateway slice"),
+])
+def test_filer_gateways_and_mount_raise_naming_their_slice(argv, slice_,
+                                                           monkeypatch):
+    from seaweedfs_tpu_torch import cli
+    from seaweedfs_tpu_torch.utils import httpd
+    bound = []
+    monkeypatch.setattr(httpd, "HttpServer",
+                        lambda *a, **kw: bound.append(a))
+    with pytest.raises(NotImplementedError, match=slice_):
+        cli.main(argv)
+    assert bound == []
+
+
+@pytest.mark.parametrize("line", ["fs.ls /", "fs.cd /x", "fs.meta.cat /a",
+                                  "volume.fsck", "volume.fsck -fix",
+                                  "s3.bucket.list", "remote.status",
+                                  "mq.topic.list"])
+def test_repl_filer_commands_raise(line):
+    """The REPL's families that need a filer raise NotImplementedError
+    naming the filer slice; nothing is sent anywhere."""
+    from seaweedfs_tpu_torch.shell.commands import ShellContext
+    from seaweedfs_tpu_torch.shell.repl import run_command
+    with pytest.raises(NotImplementedError, match="filer slice"):
+        run_command(ShellContext("127.0.0.1:1"), line)
