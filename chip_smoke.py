@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--volume-mb 1024] [--alt-volume-mb 256]
                           [--batch-volumes 64] [--batch-volume-mb 32]
-                          [--cluster-volume-mb 256] [--cli-volume-mb 1000]
-                          [--seed 0]
+                          [--cluster-volume-mb 256] [--cli-volume-mb 512]
+                          [--filer-mb 1000] [--seed 0]
 
 Phases, each printing one JSON line:
   1. device      card name and `nvidia-smi` name / power limit; then the
@@ -113,7 +113,7 @@ Phases, each printing one JSON line:
                  size limit, default repair settings), four of its
                  VolumeServers on the card on racks r0 / r1 of dc1, its
                  MasterClient and ShellContext, all in this process.
-                 --cluster-volume-mb (256; the cli phase runs 1000) of
+                 --cluster-volume-mb (256; the filer phase runs 1000) of
                  seeded needles uploaded through client.operation into the
                  one volume the master grows; ec.encode (K1 on the source,
                  one launch per batch; the 14 spread shards sha256-equal to
@@ -137,7 +137,7 @@ Phases, each printing one JSON line:
                  launch counts in a JSON file (reset with SIGUSR1). One
                  leader elected and every server registered with it;
                  `benchmark -n 4096 -size 1024 -concurrency 16`;
-                 --cli-volume-mb (1000) of seeded needles uploaded through
+                 --cli-volume-mb (512) of seeded needles uploaded through
                  client.operation; `fix` on a copy of the sealed .dat,
                  held against the server's .idx; `ec encode` (K1 on the
                  source, one launch per batch; shards sha256-equal to
@@ -154,6 +154,40 @@ Phases, each printing one JSON line:
                  download`. Each server holds a CUDA context (nvidia-smi
                  lists one compute app per process; its /dev/nvidiaN is
                  open). Any nonzero exit of a CLI process fails the phase
+  22. filer      the filer in front of the card's volume servers, each a
+                 process of its own: one `... master -volumeSizeLimitMB
+                 1024`, four `... volume` on the card (racks r0 / r1,
+                 through `volume-child`) and `... filer -store lsm -dir D`.
+                 A seeded tree of --filer-mb (1000) MiB in 64 directories
+                 three levels deep: 3900 files of 1-128 KiB, 40 of 256
+                 KiB-4 MiB (one chunk: the filer answers them with a 302 to
+                 a volume server) and files of 4-16 MiB (several 4 MiB
+                 chunks, proxied by the filer). `weed shell` fs.configure
+                 puts /data in the collection filer_smoke; `filer.copy`
+                 copies the tree; fs.du and volume.fsck hold the namespace
+                 against the tree and the volumes; every file GET through
+                 the filer on 1 and 16 threads, following 302s, sha256-
+                 equal; `lock` / `ec.encode -collection filer_smoke` /
+                 `unlock` (K1 on each source, one launch per batch); the
+                 server holding the most shards SIGKILLed (every volume
+                 keeps at least 10) and dropped by the master; the filer
+                 SIGKILLed and restarted from its lsm directory (a cold
+                 chunk cache; fs.du unchanged); degraded GETs through it,
+                 1 thread over the proxied then the redirected files, and
+                 16 threads (one K1 launch per interval each live server
+                 reconstructs, above 0 on both routes); the rebuild, by
+                 the master's repair queue where its 60 s grace ran out
+                 first (its partial chain: GF partial products on the
+                 host, no K1 launch, a fallback to copy + rebuild fails
+                 the step) and by `ec.rebuild` for the rest (K1 on the
+                 rebuilders, one launch per batch), every shard
+                 registered once; volume.fsck (no missing chunk), fs.du,
+                 fs.ls; `fs.rm -r` of one top directory, `volume.fsck
+                 -fix` (any orphan one of the removed chunks), the removed
+                 chunks gone from the EC volumes and the filer's chunk GC
+                 counting each deleted, none abandoned. nvidia-smi lists
+                 the smoke and the live volume servers only; the filer
+                 holds no /dev/nvidiaN
 Then the memory line, the kernel summary line, the `nvidia-smi` line, and
 the result line {"ok": true, "device": {...}} last. Each path phase is
 driven with every kernel entry's launch counter set to 0 just before it
@@ -2740,10 +2774,11 @@ def _holds_card(pid: int) -> bool:
 
 
 class _CliCluster:
-    """The `cli` phase's processes: CLI_MASTERS `weed master -peers`
-    processes and CLI_SERVERS `weed volume` processes (through
-    volume_child), their logs under `root`, each server's launch counts
-    in a JSON file there."""
+    """The `cli` and `filer` phases' processes: `weed master` processes
+    (with -peers when there are several), CLI_SERVERS `weed volume`
+    processes (through volume_child) and `weed filer` processes, their
+    logs under `root`, each volume server's launch counts in a JSON file
+    there."""
 
     def __init__(self, root: str):
         self.root = root
@@ -2751,6 +2786,8 @@ class _CliCluster:
         self.env = dict(os.environ, PYTHONPATH=self.repo)
         self.masters: dict[str, subprocess.Popen] = {}
         self.servers: dict[str, subprocess.Popen] = {}
+        self.filers: dict[str, subprocess.Popen] = {}
+        self.filer_starts = 0
         self.rack: dict[str, str] = {}
         self.killed: set[str] = set()
         self.resets: dict[str, int] = {}
@@ -2778,18 +2815,34 @@ class _CliCluster:
                                  f"{p.stderr[-2000:]}")
         return p.stdout, time.monotonic() - t0
 
-    def start_masters(self, volume_limit_mb: int) -> list[str]:
-        ports = _free_ports(CLI_MASTERS)
+    def start_masters(self, volume_limit_mb: int,
+                      count: int = CLI_MASTERS) -> list[str]:
+        ports = _free_ports(count)
         urls = [f"127.0.0.1:{p}" for p in ports]
         for url, port in zip(urls, ports):
             mdir = os.path.join(self.root, f"m{port}")
             os.makedirs(mdir)
             self.start_s[url] = time.monotonic()
+            peers = ["-peers", ",".join(urls)] if count > 1 else []
             self.masters[url] = self._spawn(f"master_{port}", [
                 sys.executable, "-m", "seaweedfs_tpu_torch.cli", "master",
-                "-port", str(port), "-mdir", mdir, "-peers", ",".join(urls),
+                "-port", str(port), "-mdir", mdir, *peers,
                 "-volumeSizeLimitMB", str(volume_limit_mb)])
         return urls
+
+    def start_filer(self, master: str, port: int, store_dir: str) -> str:
+        """`weed filer -store lsm -dir store_dir` on `port` (again after a
+        kill: the same port, as the master still lists it)."""
+        url = f"127.0.0.1:{port}"
+        self.killed.discard(url)
+        self.start_s[url] = time.monotonic()
+        self.filer_starts += 1
+        self.filers[url] = self._spawn(
+            f"filer_{port}_{self.filer_starts}", [
+                sys.executable, "-m", "seaweedfs_tpu_torch.cli", "filer",
+                "-port", str(port), "-master", master, "-store", "lsm",
+                "-dir", store_dir])
+        return url
 
     def start_servers(self, masters: list[str]) -> list[str]:
         ports = _free_ports(CLI_SERVERS)
@@ -2819,7 +2872,8 @@ class _CliCluster:
         return [u for u in self.servers if u not in self.killed]
 
     def check_running(self) -> None:
-        for url, p in {**self.masters, **self.servers}.items():
+        for url, p in {**self.masters, **self.servers,
+                       **self.filers}.items():
             if url not in self.killed and p.poll() is not None:
                 raise AssertionError(f"{url} exited {p.returncode}")
 
@@ -2890,24 +2944,46 @@ class _CliCluster:
         except (OSError, ValueError):
             return {}
 
-    def recovered(self, url: str, vid: int) -> int:
+    def recovered(self, url: str, vid: int, collection: str = "") -> int:
         from seaweedfs_tpu_torch.utils.httpd import http_json
         st = http_json("GET", f"http://{url}/admin/ec/shard_stat"
-                              f"?volumeId={vid}", timeout=30)
+                              f"?volumeId={vid}&collection={collection}",
+                       timeout=30)
         return sum(st["recover_stats"].values())
 
+    def launched(self, step: str, expect: dict[str, int],
+                 counts: PathCounts, phase: str, name: dict) -> dict:
+        """Each live server's K1 launches in the step, exactly `expect`
+        (url -> launches; 0 where absent), and no other kernel entry; the
+        total joins `phase`'s count. Keyed by the server's index in
+        `name`."""
+        got = {u: self.counts(u) for u in self.live_servers()}
+        per = {name[u]: c.get("gf_apply") for u, c in got.items()}
+        want = {name[u]: expect.get(u, 0) for u in got}
+        others = {name[u]: (c.get("mxu_apply"), c.get("gf_apply_batch"))
+                  for u, c in got.items()}
+        if per != want or any(any(o) for o in others.values()):
+            raise AssertionError(f"{phase} {step}: K1 launches {per}, "
+                                 f"expected {want}; other entries {others}")
+        n = sum(want.values())
+        if n:
+            counts.add(phase, "gf_apply", n, {
+                "gf_apply": n, "mxu_apply": 0, "gf_apply_batch": 0})
+        return per
+
     def kill(self, url: str) -> None:
-        procs = self.servers if url in self.servers else self.masters
+        procs = next(g for g in (self.servers, self.filers, self.masters)
+                     if url in g)
         procs[url].kill()
         procs[url].wait(timeout=60)
         self.killed.add(url)
 
     def stop(self) -> dict[str, int]:
-        """SIGTERM the volume servers, then the masters (a server's drain
-        announcement needs a master); kill what outlives 60 s. Returns
-        each process's exit code."""
+        """SIGTERM the filers, the volume servers, then the masters (a
+        server's drain announcement needs a master); kill what outlives
+        60 s. Returns each process's exit code."""
         codes = {}
-        for group in (self.servers, self.masters):
+        for group in (self.filers, self.servers, self.masters):
             for p in group.values():
                 if p.poll() is None:
                     p.send_signal(signal.SIGTERM)
@@ -2998,22 +3074,7 @@ def cli_phase(work: str, volume_mb: int, seed: int,
         on_card("started")
 
         def launched(step: str, expect: dict[str, int]) -> dict:
-            """Each live server's K1 launches in the step, exactly
-            `expect` (url -> launches; 0 where absent), and no other
-            kernel entry; the total joins the phase's count."""
-            got = {u: cl.counts(u) for u in cl.live_servers()}
-            per = {name[u]: c.get("gf_apply") for u, c in got.items()}
-            want = {name[u]: expect.get(u, 0) for u in got}
-            others = {name[u]: (c.get("mxu_apply"), c.get("gf_apply_batch"))
-                      for u, c in got.items()}
-            if per != want or any(any(o) for o in others.values()):
-                raise AssertionError(f"{step}: K1 launches {per}, expected "
-                                     f"{want}; other entries {others}")
-            n = sum(want.values())
-            if n:
-                counts.add("cli", "gf_apply", n, {
-                    "gf_apply": n, "mxu_apply": 0, "gf_apply_batch": 0})
-            return per
+            return cl.launched(step, expect, counts, "cli", name)
 
         # 2. weed benchmark
         cl.reset_counts()
@@ -3264,6 +3325,501 @@ def cli_phase(work: str, volume_mb: int, seed: int,
          decoded_dat_sha256_equal=True, bodies_equal=True)
 
 
+FILER_SMALL = 3900            # files of 1-128 KiB
+FILER_MID = 40                # one chunk of 256 KiB-4 MiB: the 302 route
+FILER_LEAVES = (4, 4, 4)      # 64 directories in three levels
+FILER_COLLECTION = "filer_smoke"
+
+
+def make_filer_tree(root: str, total_mb: int, seed: int) -> list:
+    """A seeded tree of about `total_mb` MiB under `root`: FILER_SMALL
+    files of 1-128 KiB, FILER_MID single-chunk files of 256 KiB-4 MiB
+    (past the filer's 256 KiB volume-redirect size) and files of 4-16 MiB
+    (multi-chunk at the filer's 4 MiB chunks) until the total is reached,
+    spread over 64 directories three levels deep. Returns [(relative
+    path, size, sha256 digest)] in a seeded order."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sizes = [int(x) for x in rng.integers(1 << 10, (128 << 10) + 1,
+                                           FILER_SMALL)]
+    sizes += [int(x) for x in rng.integers(256 << 10, (4 << 20) + 1,
+                                            FILER_MID)]
+    while sum(sizes) < total_mb << 20:
+        sizes.append(int(rng.integers((4 << 20) + 1, (16 << 20) + 1)))
+    a, b, c = FILER_LEAVES
+    leaves = [f"a{i}/b{j}/c{k}" for i in range(a) for j in range(b)
+              for k in range(c)]
+    order = rng.permutation(len(sizes))
+    files = []
+    for n, i in enumerate(order):
+        rel = f"{leaves[int(rng.integers(len(leaves)))]}/f{n:05d}.bin"
+        data = rng.bytes(sizes[i])
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(data)
+        files.append((rel, len(data), hashlib.sha256(data).digest()))
+    return files
+
+
+def filer_gc(cl: "_CliCluster", filer: str) -> dict:
+    """The filer's chunk_gc_total by outcome (deleted, retried, abandoned),
+    from its /metrics listener, whose address its start-up line names."""
+    import re
+
+    from seaweedfs_tpu_torch.utils.httpd import http_call
+    port = filer.rsplit(":", 1)[1]
+    with open(os.path.join(cl.root, f"filer_{port}_{cl.filer_starts}.log"),
+              encoding="utf-8", errors="replace") as f:
+        metrics = re.search(r"metrics=([\d.]+:\d+)", f.read()).group(1)
+    status, body, _ = http_call("GET", f"http://{metrics}/metrics",
+                                timeout=10)
+    if status != 200:
+        raise AssertionError(f"the filer's /metrics answered {status}")
+    return {m.group(1): int(float(m.group(2))) for m in re.finditer(
+        r'filer_chunk_gc_total\{outcome="(\w+)"\} (\S+)',
+        body.decode())}
+
+
+def _filer_gets(filer: str, files: list, threads: int = 1):
+    """GET every file of `files` through the filer, as a client that
+    follows redirects does: a 302 is followed to the volume server it
+    names. Every body is checked against its sha256. Returns (wall
+    seconds, per-GET seconds, {route: files}, the paths redirected)."""
+    import urllib.parse
+
+    from seaweedfs_tpu_torch.utils.httpd import http_call
+    took: list[float] = []
+    redirected: list[str] = []
+    proxied: list[str] = []
+
+    def get(part):
+        for rel, size, digest in part:
+            url = f"http://{filer}/data/tree/{urllib.parse.quote(rel)}"
+            t0 = time.perf_counter()
+            status, body, hdrs = http_call("GET", url, timeout=120,
+                                           follow_redirects=False)
+            if status == 302:
+                status, body, _ = http_call("GET", hdrs.get("Location"),
+                                            timeout=120)
+                redirected.append(rel)
+            else:
+                proxied.append(rel)
+            took.append(time.perf_counter() - t0)
+            if status != 200 or len(body) != size or \
+                    hashlib.sha256(body).digest() != digest:
+                raise AssertionError(f"GET {rel}: {status}, {len(body)} of "
+                                     f"{size} bytes")
+
+    t0 = time.monotonic()
+    if threads == 1:
+        get(files)
+    else:
+        _run_threads([(get, (files[i::threads],), {})
+                      for i in range(threads)])
+    wall = time.monotonic() - t0
+    return wall, took, {"proxied": len(proxied),
+                        "redirected": len(redirected)}, set(redirected)
+
+
+def filer_phase(work: str, total_mb: int, seed: int,
+                counts: PathCounts) -> None:
+    """22. The filer in front of the card's volume servers, each server a
+    process of its own: `weed master`, four `weed volume` on the card and
+    `weed filer -store lsm`; `weed shell` fs.configure, `weed filer.copy`
+    of a seeded tree, GETs through the filer (proxied and 302 routes),
+    ec.encode of the collection, the server holding the most shards
+    SIGKILLed, the filer SIGKILLed and restarted from its lsm directory,
+    degraded GETs through it (K1 in the live servers), ec.rebuild,
+    volume.fsck, fs.du, fs.ls, fs.rm -r and volume.fsck again."""
+    import urllib.parse
+
+    from seaweedfs_tpu_torch.storage.erasure_coding import encoder, layout
+    from seaweedfs_tpu_torch.utils.httpd import (HttpError, http_call,
+                                                 http_json)
+    total = layout.TOTAL_SHARDS_COUNT
+    root = os.path.join(work, "filer")
+    tree = os.path.join(root, "tree")
+    os.makedirs(tree)
+    t0 = time.monotonic()
+    files = make_filer_tree(tree, total_mb, seed + 22)
+    tree_s = time.monotonic() - t0
+    tree_bytes = sum(size for _, size, _ in files)
+    cl = _CliCluster(root)
+    steps: dict = {}
+    launches: dict = {}
+    contexts: dict = {}
+    try:
+        # 1. a master, four volume servers on the card, a filer on lsm
+        (master,) = cl.start_masters(1024, count=1)
+        servers = cl.start_servers([master])
+        startup = cl.wait_up([master], "/cluster/status")
+        # the filer announces itself to the master as it starts
+        store_dir = os.path.join(root, "filer_store")
+        filer = cl.start_filer(master, _free_ports(1)[0], store_dir)
+        startup.update(cl.wait_up(servers, "/status"))
+        startup.update(cl.wait_up([filer], "/"))
+        _wait_for(lambda: cl.registered(master) == set(servers),
+                  "the volume servers to register", timeout=60.0)
+        _wait_for(lambda: [n["url"] for n in http_json(
+            "GET", f"http://{master}/cluster/nodes?type=filer",
+            timeout=10)["cluster_nodes"]] == [filer],
+            "the filer to register", timeout=60.0)
+        name = {u: i for i, u in enumerate(servers)}
+
+        def launched(step: str, expect: dict[str, int]) -> dict:
+            return cl.launched(step, expect, counts, "filer", name)
+
+        def on_card(step: str) -> None:
+            """One compute app per process with a CUDA context (this one
+            and the live volume servers), each volume server with its
+            /dev/nvidiaN open, the filer without."""
+            apps = _smi_apps()
+            live = cl.live_servers()
+            holding = {name[u]: _holds_card(cl.servers[u].pid)
+                       for u in live}
+            filer_holds = _holds_card(cl.filers[filer].pid)
+            contexts[step] = {"compute_apps": apps, "servers": holding,
+                              "filer": filer_holds}
+            if len(apps) != 1 + len(live) or not all(holding.values()) \
+                    or filer_holds:
+                raise AssertionError(f"{step}: compute apps {apps}, "
+                                     f"servers holding the card {holding}, "
+                                     f"the filer {filer_holds}")
+
+        def shell(*lines: str):
+            out, wall = cl.cli("shell", "-master", master,
+                               stdin="".join(ln + "\n" for ln in lines))
+            return _repl_outputs(out), wall
+
+        def vol_stats() -> dict:
+            """{vid: (server, .dat bytes)} of the collection's volumes."""
+            topo = http_json("GET", f"http://{master}/dir/status",
+                             timeout=10)["Topology"]
+            out = {}
+            for dc in topo["data_centers"]:
+                for r in dc["racks"]:
+                    for n in r["nodes"]:
+                        for v in n["volumes"]:
+                            if v.get("collection") == FILER_COLLECTION:
+                                out[v["id"]] = (n["id"], os.path.getsize(
+                                    os.path.join(cl.vdir(n["id"]),
+                                                 f"{FILER_COLLECTION}_"
+                                                 f"{v['id']}.dat")))
+            return out
+
+        def repair_status() -> dict:
+            return http_json("GET", f"http://{master}/ec/repair/status",
+                             timeout=10)
+
+        def queue_busy() -> list:
+            st = repair_status()
+            return [t["volume_id"] for t in st["queue"] + st["in_flight"]]
+
+        def no_queue_fallback(step: str, since: dict) -> dict:
+            """The master's repair queue rebuilds a volume by itself once
+            it has stayed degraded for its grace (60 s), so from the drop
+            on it may act in any step. Its partial chain folds the GF
+            partial products on the host and adds no K1 launch to a
+            step's count; a fallback to copy + rebuild (K1 on its
+            rebuilder) would, and fails the step here by name."""
+            now = repair_status()
+            if now["partial_fallbacks"] != since["partial_fallbacks"]:
+                raise AssertionError(f"{step}: the repair queue fell back "
+                                     f"to copy + rebuild: {now}")
+            return now
+
+        def ec_shards() -> dict:
+            """{vid: {server: [shard ids]}} as the master has them."""
+            topo = http_json("GET", f"http://{master}/dir/status",
+                             timeout=10)["Topology"]
+            out: dict = {}
+            for dc in topo["data_centers"]:
+                for r in dc["racks"]:
+                    for n in r["nodes"]:
+                        for e in n.get("ec_shards", []):
+                            ids = [i for i in range(total)
+                                   if e["ec_index_bits"] >> i & 1]
+                            if ids:
+                                out.setdefault(e["id"], {})[n["id"]] = ids
+            return out
+
+        on_card("started")
+
+        # 2. fs.configure: /data in the collection filer_smoke
+        replies, wall = shell(f"fs.configure -locationPrefix /data "
+                              f"-collection {FILER_COLLECTION}")
+        if [r["collection"] for r in replies[0]["locations"]] != [
+                FILER_COLLECTION]:
+            raise AssertionError(f"fs.configure: {replies}")
+        steps["fs_configure_s"] = wall
+
+        # 3. weed filer.copy of the tree
+        cl.reset_counts()
+        out, wall = cl.cli("filer.copy", "-filer", filer, tree, "/data/")
+        if json.loads(out.splitlines()[-1]) != {"copied": len(files),
+                                                 "dest": "/data/"}:
+            raise AssertionError(f"weed filer.copy printed {out[-2000:]}")
+        launched("filer_copy", {})
+        steps["filer_copy"] = _step(tree_bytes, wall, files=len(files))
+        vols = vol_stats()
+        (du, fsck), wall = shell("fs.du /data", "volume.fsck")
+        if du != {"files": len(files), "bytes": tree_bytes} or \
+                not fsck["volumes_checked"] or fsck["missing_count"] or \
+                fsck["orphan_count"] or fsck["walk_errors"]:
+            raise AssertionError(f"after filer.copy: du {du}, fsck {fsck}")
+        steps["fsck_copied"] = {"seconds": wall, **{
+            k: fsck[k] for k in ("volumes_checked", "entries_referencing",
+                                 "missing_count", "orphan_count")}}
+
+        # 4. GETs through the filer, 1 and 16 client threads
+        for step, threads in (("get_1", 1), ("get_16", 16)):
+            cl.reset_counts()
+            wall, took, routes, redirected = _filer_gets(filer, files,
+                                                         threads)
+            launched(step, {})
+            steps[step] = _step(tree_bytes, wall, **routes, **_ms_stats(took))
+            if not routes["proxied"] or not routes["redirected"]:
+                raise AssertionError(f"{step}: routes {routes}")
+        on_card("before_encode")
+
+        # 5. lock / ec.encode -collection filer_smoke / unlock
+        cl.reset_counts()
+        replies, wall = shell("lock", f"ec.encode -collection "
+                                      f"{FILER_COLLECTION}", "unlock")
+        enc = replies[1]
+        if sorted(r["vid"] for r in enc) != sorted(vols):
+            raise AssertionError(f"ec.encode {enc}, volumes {vols}")
+        expect: dict[str, int] = {}
+        for r in enc:
+            src, dat = vols[r["vid"]]
+            if r["source"] != src:
+                raise AssertionError(f"ec.encode source {r}")
+            expect[src] = expect.get(src, 0) + _encode_batches(
+                dat, layout.DATA_SHARDS_COUNT)
+        launches["encode"] = launched("encode", expect)
+        _wait_for(lambda: all(sum(map(len, ec_shards().get(v, {})
+                                      .values())) == total for v in vols),
+                  "every shard to register", timeout=60.0)
+        steps["ec_encode"] = _step(sum(d for _, d in vols.values()), wall,
+                                   volumes=len(vols),
+                                   batches=sum(expect.values()))
+        placement = {r["vid"]: r["placement"] for r in enc}
+
+        # 6. SIGKILL the server holding the most shards
+        queue_at_drop = repair_status()
+        held = {u: sum(len(p.get(u, [])) for p in placement.values())
+                for u in servers}
+        victim = max(servers, key=lambda u: (held[u], u))
+        cl.kill(victim)
+        lost = {v: sorted(p.get(victim, [])) for v, p in placement.items()}
+        if any(total - len(ids) < layout.DATA_SHARDS_COUNT
+               for ids in lost.values()):
+            raise AssertionError(f"losing {victim} leaves < k: {lost}")
+
+        # 7. restart the filer from its lsm directory (SIGKILL first): its
+        # chunk cache is cold, its namespace comes back from the store
+        t0 = time.monotonic()
+        cl.kill(filer)
+        cl.start_filer(master, int(filer.rsplit(":", 1)[1]), store_dir)
+        steps["filer_restart"] = {
+            "first_answer_s": cl.wait_up([filer], "/")[filer],
+            "since_kill_s": time.monotonic() - t0}
+        (du,), _ = shell("fs.du /data")
+        if du != {"files": len(files), "bytes": tree_bytes}:
+            raise AssertionError(f"after the filer restart: du {du}")
+        t0 = time.monotonic()
+        _wait_for(lambda: victim not in cl.registered(master),
+                  "the master to drop the killed server", timeout=90.0)
+        pruned = time.monotonic()
+        steps["prune_wait_s"] = pruned - t0
+
+        # 8. degraded GETs through the filer: 1 thread, proxied files then
+        # redirected ones, then 16 threads over all; K1 launches = each
+        # live server's reconstructs
+        def recovered_all(url: str) -> int:
+            n = 0
+            for v in vols:
+                try:
+                    n += cl.recovered(url, v, FILER_COLLECTION)
+                except HttpError:  # holds no shard of v
+                    continue
+            return n
+
+        def degraded(step: str, part: list, threads: int) -> dict:
+            queue = repair_status()
+            before = {u: recovered_all(u) for u in cl.live_servers()}
+            cl.reset_counts()
+            wall, took, routes, _ = _filer_gets(filer, part, threads)
+            rec = {u: recovered_all(u) - before[u]
+                   for u in cl.live_servers()}
+            no_queue_fallback(step, queue)
+            launches[step] = launched(step, rec)
+            steps[step] = _step(sum(s for _, s, _ in part), wall, **routes,
+                                reconstructs=sum(rec.values()),
+                                **_ms_stats(took))
+            return rec
+
+        for step, part in (
+                ("get_degraded_1_proxied",
+                 [f for f in files if f[0] not in redirected]),
+                ("get_degraded_1_redirected",
+                 [f for f in files if f[0] in redirected])):
+            if not sum(degraded(step, part, 1).values()):
+                raise AssertionError(f"{step}: nothing reconstructed")
+        degraded("get_degraded_16", files, 16)
+        on_card("degraded")
+
+        # 9. the rebuild, by whichever comes first: the master's repair
+        # queue (its partial chain, once the volume has been degraded
+        # for its grace) or `lock` / `ec.rebuild` / `unlock`, which
+        # rebuilds what the queue has not
+        steps["dropped_to_rebuild_s"] = time.monotonic() - pruned
+        _wait_for(lambda: not queue_busy(), "the repair queue to settle",
+                  timeout=300.0)
+        shards_now = ec_shards()
+        by_queue = sorted(v for v, ids in lost.items() if ids and sum(
+            map(len, shards_now.get(v, {}).values())) == total)
+        cl.reset_counts()
+        replies, wall = shell("lock", "ec.rebuild", "unlock")
+        plans = replies[1]
+        expect = {}
+        rebuilt_bytes = 0
+        for plan in plans:
+            v = plan["vid"]
+            if sorted(plan.get("rebuilt", [])) != lost[v]:
+                raise AssertionError(f"ec.rebuild {plan}, lost {lost}")
+            rb = plan["rebuilder"]
+            size = os.path.getsize(os.path.join(
+                cl.vdir(rb), f"{FILER_COLLECTION}_{v}"
+                             f"{layout.shard_ext(lost[v][0])}"))
+            rebuilt_bytes += size * len(lost[v])
+            expect[rb] = expect.get(rb, 0) + \
+                -(-size // encoder.DEFAULT_BATCH_SIZE)
+        if sorted(p["vid"] for p in plans) != sorted(
+                v for v, ids in lost.items() if ids and v not in by_queue):
+            raise AssertionError(f"ec.rebuild planned {plans}, the repair "
+                                 f"queue rebuilt {by_queue}")
+        no_queue_fallback("rebuild", queue_at_drop)
+        launches["rebuild"] = launched("rebuild", expect)
+        _wait_for(lambda: not queue_busy() and all(
+            sum(map(len, ec_shards().get(v, {}).values())) == total
+            for v in vols), "the rebuilt shards to register once each",
+            timeout=60.0)
+        # what the queue rebuilt: on a server that now holds the lost
+        # shards, by the partial chain (no K1 launch: checked step by
+        # step above, a copy + rebuild fails no_queue_fallback)
+        queued: dict = {}
+        shards_now = ec_shards()
+        for v in by_queue:
+            rb = next(u for u, ids in shards_now[v].items()
+                      if set(lost[v]) <= set(ids))
+            last = http_json(
+                "GET", f"http://{rb}/admin/ec/shard_stat?volumeId={v}"
+                       f"&collection={FILER_COLLECTION}",
+                timeout=30).get("last_repair", {})
+            if not last.get("mode", "").startswith("partial"):
+                raise AssertionError(f"the repair queue rebuilt {v} on {rb} "
+                                     f"by {last}")
+            queued[v] = {"rebuilder": name[rb], **last, "k1_launches": 0}
+        status = repair_status()
+        steps["ec_rebuild"] = _step(
+            rebuilt_bytes, wall, volumes=len(plans),
+            batches=sum(expect.values()), by_queue=queued, queue={
+                k: status[k] - queue_at_drop[k] for k in (
+                    "repaired_total", "failed_total", "partial_repairs",
+                    "partial_fallbacks", "bytes_moved")})
+
+        # 10. volume.fsck, fs.du, fs.ls
+        cl.reset_counts()
+        (fsck, du, ls), wall = shell("volume.fsck", "fs.du /data",
+                                     "fs.ls /data/tree")
+        top = sorted(f"/data/tree/a{i}" for i in range(FILER_LEAVES[0]))
+        if fsck["missing_count"] or fsck["walk_errors"] or \
+                du != {"files": len(files), "bytes": tree_bytes} or \
+                sorted(e["FullPath"] for e in ls) != top:
+            raise AssertionError(f"after ec.rebuild: fsck {fsck}, du {du}, "
+                                 f"ls {[e['FullPath'] for e in ls]}")
+        launched("fsck", {})
+        steps["fsck_ec"] = {"seconds": wall, **{
+            k: fsck[k] for k in ("volumes_checked", "entries_referencing",
+                                 "missing_count", "orphan_count")}}
+
+        # 11. fs.rm -r of one top directory, then volume.fsck again; the
+        # removed files' chunks leave the EC volumes (a delete reads the
+        # needle first: K1 where it crosses the lost shards)
+        gone = [f for f in files if f[0].startswith("a0/")]
+        fids = []
+        for rel, _, _ in gone:
+            e = http_json("GET", f"http://{filer}/__api/entry?path="
+                                 f"{urllib.parse.quote('/data/tree/' + rel)}")
+            fids += [c["fid"] for c in e["entry"]["chunks"]]
+        before = {u: recovered_all(u) for u in cl.live_servers()}
+        cl.reset_counts()
+        (rm, du, fsck), wall = shell("fs.rm -r /data/tree/a0",
+                                     "fs.du /data", "volume.fsck -fix")
+        left = [f for f in files if not f[0].startswith("a0/")]
+        removed_keys = {fid.split(",")[1][:-8].lstrip("0") for fid in fids}
+        if du != {"files": len(left),
+                  "bytes": sum(s for _, s, _ in left)} or \
+                fsck["missing_count"] or fsck["purge_refused"] or any(
+                    o["needle"] not in removed_keys
+                    for o in fsck["orphans"]):
+            raise AssertionError(f"after fs.rm: {rm}, du {du}, fsck {fsck}")
+        holders = sorted(cl.live_servers())
+        remaining = set(fids)
+
+        def deleted():
+            for fid in sorted(remaining):
+                if http_call("GET", f"http://{holders[0]}/{fid}",
+                             timeout=30)[0] != 404:
+                    return False
+                remaining.discard(fid)
+            return True
+
+        _wait_for(deleted, "the removed files' chunks to be deleted",
+                  timeout=120.0)
+        # the filer's chunk GC: every removed chunk deleted, none left
+        # behind after its retries
+        def gc_settled():
+            g = filer_gc(cl, filer)
+            done = g.get("deleted", 0) + g.get("abandoned", 0)
+            return g if done == len(fids) else None
+
+        gc = _wait_for(gc_settled, "the filer's chunk GC to account for "
+                                   "every chunk", timeout=60.0)
+        if gc.get("abandoned", 0) or gc.get("deleted") != len(fids):
+            raise AssertionError(f"chunk GC {gc}, {len(fids)} chunks")
+        launches["fs_rm"] = launched("fs_rm", {
+            u: recovered_all(u) - before[u] for u in cl.live_servers()})
+        steps["fs_rm"] = {"seconds": wall, "files": len(gone),
+                          "chunks_deleted": len(fids), "chunk_gc": gc,
+                          **{k: fsck[k] for k in (
+                              "volumes_checked", "missing_count",
+                              "orphan_count", "purged")}}
+        on_card("end")
+    except BaseException:
+        # what the phase measured before it failed, for the log
+        emit("filer_failed", steps=steps, launches=launches)
+        raise
+    finally:
+        codes = cl.stop()
+    bad = {u: c for u, c in codes.items() if u not in cl.killed and c != 0}
+    if bad:
+        raise AssertionError(f"filer phase processes exited {bad}")
+    emit("filer", tree_mb=total_mb, files=len(files),
+         tree_bytes=tree_bytes, tree_s=tree_s,
+         leaves=FILER_LEAVES[0] * FILER_LEAVES[1] * FILER_LEAVES[2],
+         volumes={v: {"server": name[u], "dat_bytes": d}
+                  for v, (u, d) in vols.items()},
+         victim=name[victim], lost=lost,
+         startup_s={("master" if u == master else "filer" if u == filer
+                     else f"volume{name[u]}"): t
+                    for u, t in startup.items()},
+         steps=steps, launches=launches, cuda_contexts=contexts,
+         bodies_sha256_equal=True)
+
+
 def kernel_entry(name: str, source: str, replaces: str, counts: PathCounts,
                  worst: int, row: dict, timing: list[dict]) -> dict:
     launches = counts.total(name)
@@ -3324,12 +3880,15 @@ def main() -> int:
                          "(default 32)")
     ap.add_argument("--cluster-volume-mb", type=int, default=256,
                     help="MiB of needle payload uploaded to the cluster "
-                         "phase's one volume (default 256; the cli phase "
+                         "phase's one volume (default 256; the filer phase "
                          "carries the full width)")
-    ap.add_argument("--cli-volume-mb", type=int, default=1000,
+    ap.add_argument("--cli-volume-mb", type=int, default=512,
                     help="MiB of needle payload uploaded to the cli "
-                         "phase's one volume (default 1000, inside the "
-                         "masters' 1024 MiB volume size limit)")
+                         "phase's one volume (default 512, for the time "
+                         "limit; the filer phase carries the full width)")
+    ap.add_argument("--filer-mb", type=int, default=1000,
+                    help="MiB of the seeded tree the filer phase copies "
+                         "into the filer (default 1000)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if args.batch_volumes < len(BATCH_LOSSES):
@@ -3379,6 +3938,7 @@ def main() -> int:
                      counts, batch_counts)
         cluster_phase(work, args.cluster_volume_mb, args.seed, counts)
         cli_phase(work, args.cli_volume_mb, args.seed, counts)
+        filer_phase(work, args.filer_mb, args.seed, counts)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit("memory", max_memory_allocated=torch.cuda.max_memory_allocated(0),

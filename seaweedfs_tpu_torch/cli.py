@@ -2,7 +2,8 @@
 (reference weed/command/command.go dispatch).
 
 Subcommands: master, volume, server (all-in-one), shell, upload, download,
-delete, benchmark, ec (one-shot admin ops), filer, s3.
+delete, benchmark, ec (one-shot admin ops), filer, filer.cat, filer.copy,
+s3.
 
 The port's copy of seaweedfs_tpu/cli.py, run as
 ``python -m seaweedfs_tpu_torch.cli``: the same subcommands, flags and
@@ -16,16 +17,20 @@ output, on the port's servers, with two changes for its explicit device:
   its CUDA context before it binds a socket, and without a card it raises
   there; ``cpu`` runs the kernels' plain versions.
 
+``filer``, ``filer.cat``, ``filer.copy`` and ``server -filer`` run the
+port's filer, which takes no device: the card is reached through the
+volume servers that hold the chunks.
+
 What needs a plane the port does not have yet raises NotImplementedError
 before any socket is bound, naming the slice of ROADMAP.md queue 1 it
-comes with: ``-grpc`` on any command and ``master.follower
--grpcAddresses`` (the gRPC plane); ``filer``, ``filer.cat``,
-``filer.copy``, ``filer.meta.*`` and ``server -filer`` (the filer);
-``s3``, ``webdav``, ``ftp``, ``iam``, ``server -s3``, ``mount``, ``fuse``,
-``filer.sync``, ``filer.replicate``, ``filer.backup`` and
-``filer.remote.*`` (the gateways, mount, replication and remote storage).
-Their parsers stay, so ``-h`` and ``autocomplete`` list the reference's
-subcommands. It imports nothing of that package.
+comes with: ``-grpc`` on any command, ``master.follower -grpcAddresses``
+and ``filer -store etcd`` (the gRPC plane); the wire-protocol filer stores
+(the filer-stores slice); ``filer -ftp``, ``filer -mq``, ``s3``,
+``webdav``, ``ftp``, ``iam``, ``server -s3``, ``mount``, ``fuse``,
+``filer.sync``, ``filer.replicate``, ``filer.backup``, ``filer.meta.*``
+and ``filer.remote.*`` (the gateways, mount, replication and remote
+storage). Their parsers stay, so ``-h`` and ``autocomplete`` list the
+reference's subcommands. It imports nothing of that package.
 """
 
 from __future__ import annotations
@@ -36,13 +41,9 @@ import sys
 import time
 
 from seaweedfs_tpu_torch.utils import clockctl
+from seaweedfs_tpu_torch.utils.unported import (GATEWAY_SLICE, GRPC_SLICE,
+                                                not_ported)
 
-GRPC_SLICE = ("the gRPC slice of ROADMAP.md queue 1 (pb/, "
-              "server/{master,volume}_grpc.py, utils/tls.py)")
-FILER_SLICE = ("the filer slice of ROADMAP.md queue 1 (filer/, "
-               "server/filer_server.py, shell/fs_commands.py)")
-GATEWAY_SLICE = ("the gateway slice of ROADMAP.md queue 1 (gateway/, "
-                 "mount/, mq/, replication/, remote_storage/)")
 CODERS = ["torch", "mxu", "mesh", "cpu", "cpu-mt"]
 
 
@@ -50,8 +51,7 @@ def _not_ported(what: str, slice_: str):
     """A subcommand's handler for what the port does not have yet: it
     raises before anything is bound."""
     def cmd(args):
-        raise NotImplementedError(
-            f"{what} is not ported yet: it comes with {slice_}")
+        raise not_ported(what, slice_)
     return cmd
 
 
@@ -186,26 +186,78 @@ def cmd_volume(args):
 
 
 def cmd_server(args):
-    """All-in-one: master + volume (the filer and s3 are not ported)."""
+    """All-in-one: master + volume (+ filer; s3 is not ported)."""
     from seaweedfs_tpu_torch.server.master import MasterServer
-    if args.filer:
-        _not_ported("server -filer", FILER_SLICE)(args)
     if args.s3:
         _not_ported("server -s3", GATEWAY_SLICE)(args)
     _open_device(args.device)
     ms = MasterServer(host=args.ip, port=args.masterPort,
                       volume_size_limit_mb=args.volumeSizeLimitMB)
     ms.start()
+    started = [ms]
     try:
         vs = _volume_server(args, ms.url)
+        vs.start()
+        started.append(vs)
+        ready = f"master {ms.url}; volume {vs.url}"
+        push_targets = [("master", ms), ("volumeServer", vs)]
+        if args.filer:
+            from seaweedfs_tpu_torch.server.filer_server import FilerServer
+            fs = FilerServer(ms.url, host=args.ip, port=args.filerPort,
+                             store_dir=args.dir.split(",")[0])
+            fs.start()
+            started.append(fs)
+            ready += f"; filer {fs.url}"
+            push_targets.append(("filer", fs))
     except BaseException:
-        ms.stop()
+        for srv in reversed(started):
+            srv.stop()
         raise
-    vs.start()
-    _start_push(args, ("master", ms), ("volumeServer", vs))
+    _start_push(args, *push_targets)
     # volume drains first (its draining heartbeat needs the master
-    # still up), master last
-    _serve_until_signal(vs, ms, ready=f"master {ms.url}; volume {vs.url}")
+    # still up), the filer next, master last
+    _serve_until_signal(vs, *started[2:], ms, ready=ready)
+
+
+def cmd_filer(args):
+    """Standalone filer server (reference command/filer.go). It takes no
+    device: the chunks live on the volume servers."""
+    from seaweedfs_tpu_torch.server.filer_server import FilerServer
+    if args.ftp:
+        _not_ported("filer -ftp (gateway/ftp_server.py)", GATEWAY_SLICE)(args)
+    if args.mq:
+        _not_ported("filer -mq (mq/broker.py)", GATEWAY_SLICE)(args)
+    fs = FilerServer(args.master, host=args.ip, port=args.port,
+                     store=args.store, store_dir=args.dir,
+                     default_replication=args.defaultReplication,
+                     cipher=args.encryptVolumeData,
+                     sharding=args.sharding,
+                     entry_cache=not args.noEntryCache)
+    fs.start()
+    _start_push(args, ("filer", fs))
+    extra = " cipher" if args.encryptVolumeData else ""
+    _serve_until_signal(fs, ready=f"filer {fs.url} (store={args.store})"
+                        f"{extra}")
+
+
+def cmd_filer_cat(args):
+    """Print a filer file to stdout (reference command/filer_cat.go)."""
+    import urllib.parse
+
+    from seaweedfs_tpu_torch.utils.httpd import http_call
+    status, body, _ = http_call(
+        "GET", f"http://{args.filer}{urllib.parse.quote(args.path)}")
+    if status >= 400:
+        raise SystemExit(f"HTTP {status}")
+    sys.stdout.buffer.write(body)
+
+
+def cmd_filer_copy(args):
+    """Copy local files/dirs into the filer (reference
+    command/filer_copy.go; `weed filer.copy file1 ... /dest/`)."""
+    from seaweedfs_tpu_torch.shell.fs_commands import filer_copy
+    n = filer_copy(args.filer, args.paths, args.dest)
+    print(json.dumps({"copied": n, "dest": args.dest}))
 
 
 def cmd_version(args):
@@ -648,7 +700,7 @@ def main(argv=None):
     fl.add_argument("-mq", action="store_true",
                     help="serve the mq broker gRPC plane (weed mq.broker)")
     fl.add_argument("-mqPort", type=int, default=0)
-    fl.set_defaults(fn=_not_ported("filer", FILER_SLICE))
+    fl.set_defaults(fn=cmd_filer)
 
     for gw_name, default_port in (("s3", 8333), ("webdav", 7333),
                                   ("ftp", 2121)):
@@ -731,14 +783,14 @@ def main(argv=None):
     fct = sub.add_parser("filer.cat", help="print a filer file")
     fct.add_argument("-filer", default="127.0.0.1:8888")
     fct.add_argument("path")
-    fct.set_defaults(fn=_not_ported("filer.cat", FILER_SLICE))
+    fct.set_defaults(fn=cmd_filer_cat)
 
     fcp = sub.add_parser("filer.copy",
                          help="copy local files into the filer")
     fcp.add_argument("-filer", default="127.0.0.1:8888")
     fcp.add_argument("paths", nargs="+")
     fcp.add_argument("dest")
-    fcp.set_defaults(fn=_not_ported("filer.copy", FILER_SLICE))
+    fcp.set_defaults(fn=cmd_filer_copy)
 
     fmb = sub.add_parser("filer.meta.backup",
                          help="dump the filer meta log to JSONL")
@@ -747,14 +799,15 @@ def main(argv=None):
     fmb.add_argument("-o", dest="output", default="filer_meta.jsonl")
     fmb.add_argument("-follow", action="store_true",
                      help="keep tailing instead of a one-shot dump")
-    fmb.set_defaults(fn=_not_ported("filer.meta.backup", FILER_SLICE))
+    # both read the meta log through replication/sync.py
+    fmb.set_defaults(fn=_not_ported("filer.meta.backup", GATEWAY_SLICE))
 
     fmt_ = sub.add_parser("filer.meta.tail",
                           help="print filer meta events")
     fmt_.add_argument("-filer", default="127.0.0.1:8888")
     fmt_.add_argument("-pathPrefix", default="/")
     fmt_.add_argument("-n", type=int, default=16)
-    fmt_.set_defaults(fn=_not_ported("filer.meta.tail", FILER_SLICE))
+    fmt_.set_defaults(fn=_not_ported("filer.meta.tail", GATEWAY_SLICE))
 
     frs = sub.add_parser("filer.remote.sync",
                          help="write-back daemon for a remote mount")

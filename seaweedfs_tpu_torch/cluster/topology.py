@@ -6,7 +6,12 @@ volume location registry, per-(collection, rp, ttl) volume layouts, and the
 EC shard map. All pure in-memory logic — the master server wires heartbeats
 into it; planners (shell) run against its read API.
 
-The port's copy of seaweedfs_tpu/cluster/topology.py, the same code; it imports
+The port's copy of seaweedfs_tpu/cluster/topology.py, the same code but for
+two things the reference's topology has and seaweedfs_tpu's lacks:
+``lookup`` falls back to an EC volume's shard holders, and a node keeps
+the collection its heartbeats name for each EC volume (``to_info`` shows
+a named one, ``ec_collection`` answers it), so the shell and the repair
+queue can address the volume's ``<collection>_<vid>.*`` files. It imports
 nothing of that package.
 """
 
@@ -40,6 +45,8 @@ class DataNode:
         self.disk_slots: dict[str, int] = {"": max_volume_count}
         self.volumes: dict[int, dict] = {}
         self.ec_shards: dict[int, int] = {}  # vid -> shard bits
+        # vid -> collection, for EC volumes of a named collection
+        self.ec_collections: dict[int, str] = {}
         self.rack: Optional["Rack"] = None
         self.last_seen = clockctl.now()
         # mid-scrub-pass right now (rides heartbeats): repair dispatch
@@ -94,7 +101,9 @@ class DataNode:
             "disk_slots": dict(self.disk_slots),
             "volumes": list(self.volumes.values()),
             "ec_shards": [
-                {"id": vid, "ec_index_bits": bits}
+                {"id": vid, "ec_index_bits": bits,
+                 **({"collection": self.ec_collections[vid]}
+                    if vid in self.ec_collections else {})}
                 for vid, bits in self.ec_shards.items()],
             "rack": self.rack.id if self.rack else "",
             "data_center": self.rack.data_center.id
@@ -310,6 +319,9 @@ class Topology:
             # EC shards: full sync
             new_ec = {e["id"]: e["ec_index_bits"]
                       for e in hb.get("ec_shards", [])}
+            node.ec_collections = {e["id"]: e["collection"]
+                                   for e in hb.get("ec_shards", [])
+                                   if e.get("collection")}
             for vid in list(node.ec_shards):
                 if vid not in new_ec:
                     self._unregister_ec_shards(vid, node, node.ec_shards[vid])
@@ -357,6 +369,8 @@ class Topology:
                 vid, bits = e["id"], e["ec_index_bits"]
                 old = node.ec_shards.get(vid, 0)
                 node.ec_shards[vid] = old | bits
+                if e.get("collection"):
+                    node.ec_collections[vid] = e["collection"]
                 self._register_ec_shards(vid, node, bits, 0)
                 new_ec_vids.add(vid)
             for e in deltas.get("deleted_ec_shards", []):
@@ -367,6 +381,7 @@ class Topology:
                     node.ec_shards[vid] = remaining
                 else:
                     node.ec_shards.pop(vid, None)
+                    node.ec_collections.pop(vid, None)
                     deleted_ec_vids.add(vid)
                 self._unregister_ec_shards(vid, node, bits)
             self._notify(node, new_vids=new_vids, deleted_vids=deleted_vids,
@@ -385,6 +400,7 @@ class Topology:
                          deleted_ec_vids=set(node.ec_shards))
             node.volumes.clear()
             node.ec_shards.clear()
+            node.ec_collections.clear()
             if node.rack:
                 node.rack.nodes.pop(node.id, None)
 
@@ -433,10 +449,27 @@ class Topology:
             locs = lo.locations.get(vid)
             if locs:
                 return list(locs)
-        return []
+        # an EC volume is served by every node holding one of its shards
+        # (reference topology.go Lookup falls back to LookupEcShards), so
+        # a client or filer holding a fid of an encoded volume still
+        # finds it; seaweedfs_tpu's Topology.lookup has no such fallback
+        holders: dict[str, DataNode] = {}
+        for nodes in self.ec_shard_map.get(vid) or []:
+            for n in nodes:
+                holders.setdefault(n.url, n)
+        return list(holders.values())
 
     def lookup_ec_shards(self, vid: int) -> Optional[list[list[DataNode]]]:
         return self.ec_shard_map.get(vid)
+
+    def ec_collection(self, vid: int) -> str:
+        """The collection EC volume `vid`'s holders report ("" for the
+        default collection or an unknown volume)."""
+        for nodes in self.ec_shard_map.get(vid) or []:
+            for n in nodes:
+                if vid in n.ec_collections:
+                    return n.ec_collections[vid]
+        return ""
 
     def nodes_by_rack(self) -> dict[str, list[DataNode]]:
         """{'dc/rack': [nodes]} — the failure-domain view that

@@ -16,8 +16,11 @@ re-dispatched; concurrent repairs are capped; bytes moved are accounted
 so repair traffic is observable against the cluster's bandwidth budget
 (arxiv 1309.0186's core concern).
 
-The port's copy of seaweedfs_tpu/scrub/repair_queue.py, the same code; it imports
-nothing of that package.
+The port's copy of seaweedfs_tpu/scrub/repair_queue.py, the same code but
+for one thing: the degraded scan submits a volume with the collection its
+holders' heartbeats name (``Topology.ec_collection``), where the JAX
+package's submits "", since the port's EC files of a named collection are
+``<collection>_<vid>.*``. It imports nothing of that package.
 """
 
 from __future__ import annotations
@@ -270,6 +273,7 @@ class RepairQueue:
                 for vid, owners in topo.ec_shard_map.items()
                 if 0 < sum(1 for nodes in owners if nodes)
                 < layout.TOTAL_SHARDS_COUNT}
+            collections = {vid: topo.ec_collection(vid) for vid in degraded}
         now = clockctl.now()
         for vid in list(self._degraded_since):
             if vid not in degraded:
@@ -291,10 +295,10 @@ class RepairQueue:
             since = self._degraded_since.setdefault(vid, now)
             if now - since < self.scan_grace_s:
                 continue
-            # heartbeat shard bits carry no collection; "" resolves to
-            # the default collection, and a scrub report for the same
-            # vid merges in without clobbering (scrub reports DO know)
-            self.submit(vid, "", reason="heartbeat:degraded")
+            # the collection the holders' heartbeats name ("" for the
+            # default one); a scrub report for the same vid merges in
+            # without clobbering
+            self.submit(vid, collections[vid], reason="heartbeat:degraded")
 
     def _dispatch(self) -> None:
         now = clockctl.now()

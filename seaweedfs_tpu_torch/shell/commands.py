@@ -7,15 +7,15 @@ planning is delegated to shell/ec_plan.py pure functions; this module owns
 the RPC choreography.
 
 The port's copy of seaweedfs_tpu/shell/commands.py, the same code but for
-what needs a plane the port does not have yet:
-  - the volume servers' gRPC admin plane (server/volume_grpc.py): the
-    shell drives every volume server over HTTP, as the reference's does
-    when its probe finds no gRPC port, so ``volume.tail`` (gRPC only)
-    raises as it does there;
-  - ``volume.fsck`` needs a filer (shell/fsck.py) and raises
-    NotImplementedError.
-It takes no device: EC work runs on the volume servers. It imports
-nothing of that package.
+the volume servers' gRPC admin plane (server/volume_grpc.py), which the
+port does not have yet: the shell drives every volume server over HTTP,
+as the reference's does when its probe finds no gRPC port, so
+``volume.tail`` (gRPC only) raises as it does there. Its ec.rebuild,
+ec.balance and ec.decode requests name the volume's collection, from the
+master's EC shard map (the reference's shell sends it; seaweedfs_tpu's
+sends none), so the volume servers open ``<collection>_<vid>.*``. It
+takes no device: EC work runs on the volume servers. It imports nothing
+of that package.
 """
 
 from __future__ import annotations
@@ -40,6 +40,16 @@ class ShellContext:
     def topology(self) -> dict:
         return http_json(
             "GET", f"http://{self.master_url}/dir/status")["Topology"]
+
+    @staticmethod
+    def _ec_collections(topo: dict) -> dict[int, str]:
+        """vid -> collection of each EC volume of a named collection in a
+        /dir/status topology dump."""
+        return {e["id"]: e["collection"]
+                for dc in topo.get("data_centers", [])
+                for rack in dc.get("racks", [])
+                for n in rack.get("nodes", [])
+                for e in n.get("ec_shards", []) if e.get("collection")}
 
     def _grpc_client(self, node: str):
         """The node's gRPC admin client: None, the volume servers' gRPC
@@ -576,11 +586,9 @@ class ShellContext:
 
     def volume_fsck(self, filer_url: str, fix: bool = False,
                     collection: str = "") -> dict:
-        """Cross-check filer chunks against volume needles (reference
-        command_volume_fsck.go): not ported yet, it needs the filer."""
-        raise NotImplementedError(
-            "volume.fsck needs the filer (shell/fsck.py), which is not "
-            "ported yet (ROADMAP.md queue 1)")
+        from seaweedfs_tpu_torch.shell.fsck import volume_fsck
+        return volume_fsck(self, filer_url, fix=fix,
+                           collection=collection or None)
 
     def cluster_ps(self) -> dict:
         """Every known cluster process (reference command_cluster_ps.go):
@@ -726,23 +734,26 @@ class ShellContext:
         plans = ec_plan.plan_ec_rebuild(topo)
         if not apply:
             return plans
+        collections = self._ec_collections(topo)
         for plan in plans:
             if "error" in plan:
                 continue
             rebuilder = plan["rebuilder"]
+            col = collections.get(plan["vid"], "")
             by_source: dict[str, list[int]] = defaultdict(list)
             for mv in plan["copies"]:
                 by_source[mv.source].append(mv.shard_id)
             for source, sids in by_source.items():
                 self._vs(rebuilder, "/admin/ec/copy",
-                         {"volume_id": plan["vid"], "shard_ids": sids,
+                         {"volume_id": plan["vid"], "collection": col,
+                          "shard_ids": sids,
                           "source_data_node": source, "copy_ecx_file": True})
             out = self._vs(rebuilder, "/admin/ec/rebuild",
-                           {"volume_id": plan["vid"],
+                           {"volume_id": plan["vid"], "collection": col,
                             "pipelined": pipelined})
             plan["rebuilt"] = out.get("rebuilt_shard_ids", [])
             self._vs(rebuilder, "/admin/ec/mount",
-                     {"volume_id": plan["vid"],
+                     {"volume_id": plan["vid"], "collection": col,
                       "shard_ids": plan["rebuilt"]})
         return plans
 
@@ -796,6 +807,7 @@ class ShellContext:
         except Exception:
             repair = {}
         volumes = []
+        collections = self._ec_collections(topo)
         for v, shard_map in sorted(owners.items()):
             if vid is not None and v != vid:
                 continue
@@ -803,7 +815,8 @@ class ShellContext:
             try:
                 stat = http_json(
                     "GET",
-                    f"http://{holder}/admin/ec/shard_stat?volumeId={v}")
+                    f"http://{holder}/admin/ec/shard_stat?volumeId={v}"
+                    f"&collection={collections.get(v, '')}")
             except Exception as e:
                 stat = {"error": str(e)}
             code = stat.get("code") or {}
@@ -1085,22 +1098,21 @@ class ShellContext:
         moves = ec_plan.plan_ec_balance(topo)
         if not apply:
             return moves
+        collections = self._ec_collections(topo)
         for mv in moves:
+            one = {"volume_id": mv.vid,
+                   "collection": collections.get(mv.vid, ""),
+                   "shard_ids": [mv.shard_id]}
             if mv.target == "":  # duplicate copy: drop it
-                self._vs(mv.source, "/admin/ec/unmount",
-                         {"volume_id": mv.vid, "shard_ids": [mv.shard_id]})
-                self._vs(mv.source, "/admin/ec/delete_shards",
-                         {"volume_id": mv.vid, "shard_ids": [mv.shard_id]})
+                self._vs(mv.source, "/admin/ec/unmount", one)
+                self._vs(mv.source, "/admin/ec/delete_shards", one)
                 continue
             self._vs(mv.target, "/admin/ec/copy",
-                     {"volume_id": mv.vid, "shard_ids": [mv.shard_id],
-                      "source_data_node": mv.source, "copy_ecx_file": True})
-            self._vs(mv.target, "/admin/ec/mount",
-                     {"volume_id": mv.vid, "shard_ids": [mv.shard_id]})
-            self._vs(mv.source, "/admin/ec/unmount",
-                     {"volume_id": mv.vid, "shard_ids": [mv.shard_id]})
-            self._vs(mv.source, "/admin/ec/delete_shards",
-                     {"volume_id": mv.vid, "shard_ids": [mv.shard_id]})
+                     {**one, "source_data_node": mv.source,
+                      "copy_ecx_file": True})
+            self._vs(mv.target, "/admin/ec/mount", one)
+            self._vs(mv.source, "/admin/ec/unmount", one)
+            self._vs(mv.source, "/admin/ec/delete_shards", one)
         return moves
 
     # ---- ec.decode (reference command_ec_decode.go) ----
@@ -1108,17 +1120,21 @@ class ShellContext:
         topo = self.topology()
         plan = ec_plan.plan_ec_decode(topo, vid)
         collector = plan["collector"]
+        col = self._ec_collections(topo).get(vid, "")
         by_source: dict[str, list[int]] = defaultdict(list)
         for mv in plan["copies"]:
             by_source[mv.source].append(mv.shard_id)
         for source, sids in by_source.items():
             self._vs(collector, "/admin/ec/copy",
-                     {"volume_id": vid, "shard_ids": sids,
+                     {"volume_id": vid, "collection": col,
+                      "shard_ids": sids,
                       "source_data_node": source, "copy_ecx_file": True})
             self._vs(collector, "/admin/ec/mount",
-                     {"volume_id": vid, "shard_ids": sids})
+                     {"volume_id": vid, "collection": col,
+                      "shard_ids": sids})
         out = self._vs(collector, "/admin/ec/to_volume",
-                       {"volume_id": vid, "pipelined": pipelined})
+                       {"volume_id": vid, "collection": col,
+                        "pipelined": pipelined})
         # clean up shards everywhere else
         for sid, owner_list in plan["all_owners"].items():
             for owner in owner_list:
@@ -1128,7 +1144,8 @@ class ShellContext:
                     self._vs(owner, "/admin/ec/unmount",
                              {"volume_id": vid, "shard_ids": [sid]})
                     self._vs(owner, "/admin/ec/delete_shards",
-                             {"volume_id": vid, "shard_ids": [sid]})
+                             {"volume_id": vid, "collection": col,
+                              "shard_ids": [sid]})
                 except (ConnectionError, HttpError):
                     pass
         return {"vid": vid, "collector": collector,

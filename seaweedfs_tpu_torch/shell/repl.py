@@ -1,11 +1,12 @@
 """Interactive admin shell (reference weed/shell/shell_liner.go).
 
 The port's copy of seaweedfs_tpu/shell/repl.py: the same commands, help
-text and output, run on the port's ShellContext. The command families
-that need a filer (``fs.*``, ``remote.*``, ``s3.*``, ``mq.*`` and
-``volume.fsck``) raise NotImplementedError naming the filer slice, and
-``mount.configure`` the mount slice: neither is ported yet. It takes no
-device and imports nothing of that package.
+text and output, run on the port's ShellContext, with the ``fs.*`` family
+and ``volume.fsck`` on the port's filer. What needs a plane the port does
+not have yet raises NotImplementedError naming the gateway slice:
+``fs.meta.tail`` (replication/sync.py), the ``remote.*``, ``s3.*`` and
+``mq.*`` families, and ``mount.configure`` (mount/ with its gRPC admin
+plane). It takes no device and imports nothing of that package.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import json
 import shlex
 
 from seaweedfs_tpu_torch.shell.commands import ShellContext
+from seaweedfs_tpu_torch.utils.unported import GATEWAY_SLICE, not_ported
 
 HELP = """commands:
   fs.ls/cat/rm/mkdir/mv/du/tree <path> [..]   filer namespace ops
@@ -114,8 +116,123 @@ def run_repl(master_url: str) -> None:
             print(json.dumps(out, default=str, indent=2))
 
 
-FILER_SLICE = ("the filer slice of ROADMAP.md queue 1 (filer/, "
-               "shell/fs_commands.py, shell/fsck.py)")
+def _find_filer(sh: ShellContext) -> str:
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+    out = http_json("GET",
+                    f"http://{sh.master_url}/cluster/nodes?type=filer")
+    nodes = out.get("cluster_nodes", [])
+    if not nodes:
+        raise RuntimeError("no filer registered with the master")
+    return nodes[0]["url"]
+
+
+def _fs_command(sh: ShellContext, cmd: str, args: list[str],
+                flags: dict):
+    import posixpath
+
+    from seaweedfs_tpu_torch.shell.fs_commands import FsContext
+    op = cmd[3:]
+    if op == "meta.tail":
+        # the reference tails through replication/sync.py
+        raise not_ported("fs.meta.tail", GATEWAY_SLICE)
+    fsc = FsContext(_find_filer(sh))
+    cwd = getattr(sh, "cwd", "/")
+
+    def rp(p: str) -> str:
+        # relative paths resolve against the REPL's fs.cd state
+        # (reference command_fs_cd.go / fs_pwd.go)
+        return p if p.startswith("/") \
+            else posixpath.normpath(posixpath.join(cwd, p))
+    if op == "cd":
+        target = rp(args[0]) if args else "/"
+        fsc.ls(target)  # raises if not a directory
+        sh.cwd = target
+        return {"cwd": target}
+    if op == "pwd":
+        return {"cwd": cwd}
+    if op == "ls":
+        return fsc.ls(rp(args[0]) if args else cwd)
+    if op == "cat":
+        data = fsc.cat(rp(args[0]))
+        print(data.decode(errors="replace"))
+        return None
+    if op == "rm":
+        paths = [a for a in args if not a.startswith("-")]
+        fsc.rm(rp(paths[0]), recursive="-r" in args)
+        return {"removed": rp(paths[0])}
+    if op == "mkdir":
+        fsc.mkdir(rp(args[0]))
+        return {"created": rp(args[0])}
+    if op == "mv":
+        fsc.mv(rp(args[0]), rp(args[1]))
+        return {"moved": [rp(args[0]), rp(args[1])]}
+    if op == "du":
+        files, size = fsc.du(rp(args[0]) if args else cwd)
+        return {"files": files, "bytes": size}
+    if op == "tree":
+        for line_ in fsc.tree(rp(args[0]) if args else cwd):
+            print(line_)
+        return None
+    if op == "meta.notify":
+        # resend a subtree's entries to the configured notification
+        # queue (reference command_fs_meta_notify.go loads
+        # notification.toml in the shell process the same way)
+        from seaweedfs_tpu_torch.notification.queue import \
+            make_queue_from_config
+        mq = make_queue_from_config()
+        if mq is None:
+            raise RuntimeError(
+                "no notification backend enabled in notification.toml")
+        root = rp(flags.get("root", cwd))
+        sent = 0
+
+        def walk(d: str):
+            nonlocal sent
+            for e in fsc.ls(d, limit=1 << 20):
+                if e.get("IsDirectory"):
+                    walk(e["FullPath"])
+                else:
+                    mq.send_message(e["FullPath"], {
+                        "event": "create", "new_entry": e})
+                    sent += 1
+        walk(root)
+        mq.close()
+        return {"notified": sent, "root": root}
+    if op == "meta.save":
+        from seaweedfs_tpu_torch.shell.fs_commands import fs_meta_save
+        n = fs_meta_save(fsc.filer_url, flags.get("root", "/"),
+                         flags.get("o", "filer_meta.jsonl"))
+        return {"saved": n, "file": flags.get("o", "filer_meta.jsonl")}
+    if op == "meta.load":
+        from seaweedfs_tpu_torch.shell.fs_commands import fs_meta_load
+        src = flags.get("i")
+        if not src:
+            raise ValueError("usage: fs.meta.load -i <dump.jsonl>")
+        return {"loaded": fs_meta_load(fsc.filer_url, src)}
+    if op == "meta.cat":
+        # raw metadata of one entry (reference command_fs_meta_cat.go)
+        import urllib.parse
+
+        from seaweedfs_tpu_torch.utils.httpd import http_json
+        return http_json(
+            "GET", f"http://{fsc.filer_url}/__api/entry?path="
+                   f"{urllib.parse.quote(args[-1], safe='')}")
+    if op == "configure":
+        # per-path storage rules (reference command_fs_configure.go)
+        from seaweedfs_tpu_torch.utils.httpd import http_json
+        body = {"location_prefix": flags.get("locationPrefix", "/")}
+        if "-delete" in args:
+            body["delete"] = True
+        for k_flag, k_body in (("collection", "collection"),
+                               ("replication", "replication"),
+                               ("ttl", "ttl"), ("disk", "disk_type")):
+            if k_flag in flags:
+                body[k_body] = flags[k_flag]
+        if "-readOnly" in args:
+            body["read_only"] = True
+        return http_json(
+            "POST", f"http://{fsc.filer_url}/__api/filer_conf", body)
+    raise ValueError(f"unknown fs command {op!r}")
 
 
 def run_command(sh: ShellContext, line: str):
@@ -134,18 +251,20 @@ def run_command(sh: ShellContext, line: str):
     if cmd == "unlock":
         sh.unlock()
         return {"locked": False}
-    if cmd.startswith(("fs.", "remote.", "s3.", "mq.")):
-        # every command of these families reads or writes the filer
-        raise NotImplementedError(
-            f"{cmd} needs a filer: {FILER_SLICE} is not ported yet")
+    if cmd.startswith("fs."):
+        return _fs_command(sh, cmd, args, flags)
+    if cmd.startswith(("remote.", "s3.", "mq.")):
+        # the remote-storage clients, the S3 gateway and the message
+        # queue broker behind these families
+        raise not_ported(cmd, GATEWAY_SLICE)
     if cmd == "volume.list":
         return sh.volume_list()
     if cmd == "volume.check.disk":
         vid = int(flags["volumeId"]) if "volumeId" in flags else None
         return sh.volume_check_disk(vid=vid, fix="-fix" in args)
     if cmd == "volume.fsck":
-        raise NotImplementedError(
-            f"volume.fsck needs a filer: {FILER_SLICE} is not ported yet")
+        return sh.volume_fsck(_find_filer(sh), fix="-fix" in args,
+                              collection=flags.get("collection", ""))
     if cmd == "volume.move":
         sh.volume_move(int(flags["volumeId"]), flags["source"],
                        flags["target"], flags.get("collection", ""))
@@ -179,9 +298,8 @@ def run_command(sh: ShellContext, line: str):
     if cmd == "mount.configure":
         # the reference pushes the quota over each mount's gRPC admin
         # plane (mount/mount_grpc.py)
-        raise NotImplementedError(
-            "mount.configure needs the mount slice of ROADMAP.md queue 1 "
-            "(mount/ with its gRPC admin plane), not ported yet")
+        raise not_ported("mount.configure (mount/ with its gRPC admin "
+                         "plane)", GATEWAY_SLICE)
     if cmd == "cluster.raft.ps":
         from seaweedfs_tpu_torch.utils.httpd import http_json
         return http_json("GET",

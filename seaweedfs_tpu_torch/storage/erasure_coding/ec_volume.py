@@ -2,9 +2,14 @@
 
 The port of seaweedfs_tpu/storage/erasure_coding/ec_volume.py (reference
 weed/storage/erasure_coding/ec_volume.go, ec_shard.go, ec_volume_delete.go,
-ec_volume_info.go). One difference: read_interval maps an interval to its
-shard with the volume's own data-shard count, where the JAX package
-assumes 10 and misreads RS(6,3) and RS(12,6) volumes.
+ec_volume_info.go). Two differences:
+- read_interval maps an interval to its shard with the volume's own
+  data-shard count, where the JAX package assumes 10 and misreads RS(6,3)
+  and RS(12,6) volumes;
+- the files of a volume in a named collection are
+  ``<collection>_<vid>.ecNN`` / ``.ecx`` / ``.ecj`` / ``.vif``, the names
+  the encoder writes and the reference's EcShardFileName gives; the JAX
+  package opens ``<vid>.*`` there, so it cannot mount such a volume.
 """
 
 from __future__ import annotations
@@ -17,6 +22,13 @@ from typing import Callable, Iterator, Optional
 from seaweedfs_tpu_torch.models.coder import scheme_from_dict, scheme_to_dict
 from seaweedfs_tpu_torch.storage import types as t
 from seaweedfs_tpu_torch.storage.erasure_coding import layout
+
+
+def ec_base_name(directory: str, collection: str, volume_id: int) -> str:
+    """<directory>/<collection>_<vid>, or <directory>/<vid> without a
+    collection (reference erasure_coding EcShardBaseFileName)."""
+    name = f"{collection}_{volume_id}" if collection else str(volume_id)
+    return os.path.join(directory, name)
 
 
 def read_volume_info(base_file_name: str) -> dict:
@@ -139,8 +151,8 @@ class EcVolumeShard:
         self.collection = collection
         self.volume_id = volume_id
         self.shard_id = shard_id
-        self.path = os.path.join(
-            directory, f"{volume_id}{layout.shard_ext(shard_id)}")
+        self.path = ec_base_name(directory, collection, volume_id) + \
+            layout.shard_ext(shard_id)
         self._f = open(self.path, "rb")
         self.shard_size = os.path.getsize(self.path)
         self._lock = threading.Lock()
@@ -167,7 +179,7 @@ class EcVolume:
         self.directory = directory
         self.collection = collection
         self.volume_id = volume_id
-        self.base_file_name = os.path.join(directory, str(volume_id))
+        self.base_file_name = ec_base_name(directory, collection, volume_id)
         info = read_volume_info(self.base_file_name)
         self.version = int(info.get("version", version))
         # the volume's CodeSpec (RS(10,4) when the .vif predates CodeSpec

@@ -171,11 +171,11 @@ def test_same_subcommands_as_jax(capsys):
     (["volume", "-grpc", "-device", "cpu"], "gRPC"),
     (["server", "-grpc", "-device", "cpu"], "gRPC"),
     (["master.follower", "-grpcAddresses", "127.0.0.1:19333"], "gRPC"),
-    (["filer"], "filer"),
-    (["filer.cat", "/x"], "filer"),
-    (["filer.copy", "a", "/b"], "filer"),
-    (["filer.meta.tail"], "filer"),
-    (["server", "-filer", "-device", "cpu"], "filer"),
+    (["filer", "-grpc"], "gRPC"),
+    (["filer", "-store", "redis"], "filer-stores"),
+    (["filer", "-store", "etcd"], "gRPC"),
+    (["filer.meta.tail"], "gateway"),
+    (["filer", "-mq"], "gateway"),
     (["s3"], "gateway"), (["webdav"], "gateway"), (["ftp"], "gateway"),
     (["iam"], "gateway"), (["mount", "/mnt/x"], "gateway"),
     (["fuse", "/mnt/x"], "gateway"), (["server", "-s3", "-device", "cpu"],
@@ -184,12 +184,13 @@ def test_same_subcommands_as_jax(capsys):
     (["filer.replicate"], "gateway"), (["filer.backup"], "gateway"),
     (["filer.remote.sync", "-dir", "/m"], "gateway"),
     (["filer.remote.gateway", "-remote", "r"], "gateway"),
+    (["filer", "-ftp"], "gateway"), (["filer.meta.backup"], "gateway"),
 ])
 def test_what_is_not_ported_raises_before_binding(argv, slice_, monkeypatch):
-    from seaweedfs_tpu_torch.server import volume_server
+    from seaweedfs_tpu_torch.server import filer_server, volume_server
     from seaweedfs_tpu_torch.utils import httpd
     bound = []
-    for mod in (httpd, master, volume_server):
+    for mod in (httpd, master, volume_server, filer_server):
         monkeypatch.setattr(mod, "HttpServer",
                             lambda *a, **kw: bound.append(a))
     with pytest.raises(NotImplementedError, match=slice_):
@@ -456,11 +457,12 @@ def test_repl_json_matches_jax(stacks, capsys):
 def test_repl_loop_reports_errors_and_continues(monkeypatch, capsys):
     """run_repl prints `error:` for a command that raises and goes on."""
     from seaweedfs_tpu_torch.shell import repl
-    lines = iter(["fs.ls /", "bogus.command", "help", "exit"])
+    lines = iter(["fs.meta.tail", "bogus.command", "help", "exit"])
     monkeypatch.setattr("builtins.input", lambda prompt: next(lines))
     repl.run_repl("127.0.0.1:1")
     out = capsys.readouterr().out
-    assert "error: NotImplementedError: fs.ls needs a filer" in out
+    assert "error: NotImplementedError: fs.meta.tail is not ported yet" \
+        in out
     assert "error: ValueError: unknown command 'bogus.command'" in out
     assert "ec.rebuild [-n]" in out  # the help text
 

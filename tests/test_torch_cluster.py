@@ -100,8 +100,57 @@ def _feed(mod, stream, limit=4000):
     return topo
 
 
+def _ec_holders(stream, vid, dead=()):
+    """The nodes that hold a shard of EC volume `vid` once `stream` is
+    applied, from the heartbeats alone (a full heartbeat replaces a
+    node's shard bits, a delta adds or clears bits), each with the
+    lowest shard id it holds; nodes in `dead` are left out."""
+    bits: dict[str, dict[int, int]] = {}
+    for ev in stream:
+        if ev[0] == "full":
+            hb = ev[1]
+            bits[f"{hb['ip']}:{hb['port']}"] = {
+                e["id"]: e["ec_index_bits"] for e in hb["ec_shards"]}
+            continue
+        held = bits[ev[1]]
+        for e in ev[2].get("new_ec_shards", []):
+            held[e["id"]] = held.get(e["id"], 0) | e["ec_index_bits"]
+        for e in ev[2].get("deleted_ec_shards", []):
+            left = held.get(e["id"], 0) & ~e["ec_index_bits"]
+            if left:
+                held[e["id"]] = left
+            else:
+                held.pop(e["id"], None)
+    return {nid: (held[vid] & -held[vid]).bit_length() - 1
+            for nid, held in bits.items()
+            if held.get(vid) and nid not in dead}
+
+
+def _check_lookup(t, j, stream, dead=()):
+    """The port's lookup equals the JAX package's wherever that answers.
+    Where it does not (an EC volume: seaweedfs_tpu's lookup has no EC
+    fallback), the port answers every holder of a shard of the volume,
+    each once, in shard order (reference topology.go Lookup falls back to
+    LookupEcShards); the holders come from the heartbeat stream."""
+    fallbacks = 0
+    for c in ("", "photos"):
+        for v in range(1, 31):
+            got = [n.id for n in t.lookup(c, v)]
+            want = [n.id for n in j.lookup(c, v)]
+            if want:
+                assert got == want, (c, v)
+                continue
+            holders = _ec_holders(stream, v, dead)
+            assert sorted(got) == sorted(holders), (c, v)
+            first = [holders[nid] for nid in got]
+            assert first == sorted(first), (c, v)
+            fallbacks += bool(got)
+    return fallbacks
+
+
 def _view(topo):
-    """Everything a master answers from its topology, by node id."""
+    """Everything a master answers from its topology, by node id, but
+    lookups (_check_lookup)."""
     ids = lambda nodes: [n.id for n in nodes]  # noqa: E731
     return {
         "info": topo.to_info(),
@@ -109,8 +158,6 @@ def _view(topo):
                         {v: ids(ns) for v, ns in lo.locations.items()},
                         lo.active_volume_count(), lo.clean_volume_count())
                     for k, lo in topo.layouts.items()},
-        "lookup": {(c, v): ids(topo.lookup(c, v))
-                   for c in ("", "photos") for v in range(1, 31)},
         "ec": {v: [ids(ns) for ns in topo.lookup_ec_shards(v)]
                for v in sorted(topo.ec_shard_map)},
         "by_rack": {k: ids(ns) for k, ns in topo.nodes_by_rack().items()},
@@ -126,6 +173,8 @@ def test_heartbeat_stream_matches_jax(seed):
     stream = _heartbeats(seed)
     t, j = _feed(ttopo, stream), _feed(jtopo, stream)
     assert _view(t) == _view(j)
+    # the EC fallback is exercised where the stream holds EC volumes
+    assert _check_lookup(t, j, stream) > 0
     scheme = (LrcScheme(), JLrcScheme())
     for v in sorted(t.ec_shard_map):
         assert t.ec_group_alignment(v, scheme[0]) == \
@@ -163,6 +212,7 @@ def test_heartbeat_stream_matches_jax(seed):
     assert [n.id for n in t.prune_dead_nodes(timeout=30)] == \
         [n.id for n in j.prune_dead_nodes(timeout=30)] == dead_ids
     assert _view(t) == _view(j)
+    _check_lookup(t, j, stream, dead=set(dead_ids))
 
 
 def test_norm_disk_matches_jax():

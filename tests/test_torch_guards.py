@@ -65,7 +65,20 @@ def test_port_and_smoke_never_import_jax_or_reference():
                 "shell/ec_plan.py", "shell/commands.py",
                 # the command line and master HA
                 "cli.py", "shell/repl.py", "cluster/raft.py",
-                "storage/maintenance.py"):
+                "storage/maintenance.py",
+                # the filer, its stores, caches and shell commands
+                "filer/entry.py", "filer/filechunks.py",
+                "filer/filechunk_manifest.py", "filer/filerstore.py",
+                "filer/abstract_sql.py", "filer/lsm_store.py",
+                "filer/filerstore_hardlink.py", "filer/entry_cache.py",
+                "filer/filer.py", "filer/filer_conf.py",
+                "filer/meta_aggregator.py", "filer/reader_cache.py",
+                "filer/remote_mount.py", "server/filer_server.py",
+                "shell/fs_commands.py", "shell/fsck.py",
+                "utils/chunk_cache.py", "utils/cipher.py",
+                "utils/aesgcm_compat.py", "stats/autocap.py",
+                "notification/queue.py", "remote_storage/remote_storage.py",
+                "pb/remote_pb2.py", "utils/unported.py"):
         assert PORT / rel in files, rel
     bad = {str(f.relative_to(REPO)): [n for n in _imported_modules(f)
                                       if _forbidden(n)]
@@ -314,8 +327,8 @@ def test_control_plane_raises_for_what_is_not_ported(monkeypatch):
     lack raise NotImplementedError where they are reached: the master's
     gRPC plane (before any socket is bound, also as `master -grpc` and
     `volume -grpc` on the command line), the client's gRPC push mode, and
-    volume.fsck (it needs the filer). The shell drives volume servers over
-    HTTP without probing for gRPC."""
+    the wire-protocol filer stores a filer would be made on. The shell
+    drives volume servers over HTTP without probing for gRPC."""
     from seaweedfs_tpu_torch import cli
     from seaweedfs_tpu_torch.client.wdclient import MasterClient
     from seaweedfs_tpu_torch.server import master, volume_server
@@ -334,9 +347,10 @@ def test_control_plane_raises_for_what_is_not_ported(monkeypatch):
     monkeypatch.undo()
     with pytest.raises(NotImplementedError, match="gRPC"):
         MasterClient("127.0.0.1:1", grpc_address="127.0.0.1:2")
+    from seaweedfs_tpu_torch.filer.filerstore import make_store
+    with pytest.raises(NotImplementedError, match="filer-stores slice"):
+        make_store("redis")
     sh = ShellContext("127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="filer"):
-        sh.volume_fsck("127.0.0.1:8888")
     assert sh._grpc_client("127.0.0.1:2") is None
 
 
@@ -364,30 +378,38 @@ def test_volume_command_raises_without_cuda_before_binding(no_cuda,
 
 
 @pytest.mark.parametrize("argv,slice_", [
-    (["filer"], "the filer slice"),
+    (["filer", "-grpc"], "the gRPC slice"),
     (["s3"], "the gateway slice"),
     (["mount", "/mnt/weed"], "the gateway slice"),
 ])
 def test_filer_gateways_and_mount_raise_naming_their_slice(argv, slice_,
                                                            monkeypatch):
     from seaweedfs_tpu_torch import cli
+    from seaweedfs_tpu_torch.server import filer_server
     from seaweedfs_tpu_torch.utils import httpd
     bound = []
-    monkeypatch.setattr(httpd, "HttpServer",
-                        lambda *a, **kw: bound.append(a))
+    for mod in (httpd, filer_server):
+        monkeypatch.setattr(mod, "HttpServer",
+                            lambda *a, **kw: bound.append(a))
     with pytest.raises(NotImplementedError, match=slice_):
         cli.main(argv)
     assert bound == []
 
 
-@pytest.mark.parametrize("line", ["fs.ls /", "fs.cd /x", "fs.meta.cat /a",
-                                  "volume.fsck", "volume.fsck -fix",
+@pytest.mark.parametrize("line", ["fs.meta.tail", "fs.meta.tail -n 4",
+                                  "remote.configure -name r",
+                                  "mount.configure -collectionCapacity 1",
+                                  "s3.configure -user u",
                                   "s3.bucket.list", "remote.status",
                                   "mq.topic.list"])
 def test_repl_filer_commands_raise(line):
-    """The REPL's families that need a filer raise NotImplementedError
-    naming the filer slice; nothing is sent anywhere."""
+    """What the REPL's filer families reach and the port does not have
+    yet (replication/sync.py behind fs.meta.tail, the remote-storage
+    clients, the S3 gateway, the mq broker, mount's admin plane) raises
+    NotImplementedError naming the gateway slice; nothing is sent
+    anywhere. The fs.* family and volume.fsck run against the port's
+    filer (tests/test_torch_filer_server.py)."""
     from seaweedfs_tpu_torch.shell.commands import ShellContext
     from seaweedfs_tpu_torch.shell.repl import run_command
-    with pytest.raises(NotImplementedError, match="filer slice"):
+    with pytest.raises(NotImplementedError, match="gateway slice"):
         run_command(ShellContext("127.0.0.1:1"), line)

@@ -316,16 +316,47 @@ def test_partitioned_leader_steps_down():
             n.stop()
 
 
+def _propose_committed(nodes, command, timeout=90.0):
+    """Commit `command` exactly once through whichever node leads, and
+    return that leader. Under load the leader can change between
+    wait_leader and the commit: a proposal that raises NotLeaderError or
+    times out is retried only once a ready leader (its election no-op
+    committed) does not hold it, since only then can it never commit; a
+    ready leader that holds it has committed it already."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        leader = wait_leader(nodes)
+        try:
+            if leader.propose(command, timeout=5):
+                return leader
+        except NotLeaderError:
+            pass
+        while time.time() < deadline:
+            leader = wait_leader(nodes)
+            if leader.wait_ready(timeout=5):
+                break
+        with leader.lock:
+            held = any(e["command"] == command for e in leader.log)
+        if held:
+            return leader
+    raise AssertionError(f"{command} not committed in {timeout} s")
+
+
 def test_persistence_across_restart(tmp_path):
     net, nodes, applied = make_cluster(3, tmp_path)
     for n in nodes:
         n.start()
-    leader = wait_leader(nodes)
-    for k in range(3):
-        assert leader.propose({"op": k}, timeout=5)
-    term_before = leader.current_term
-    for n in nodes:
-        n.stop()
+    try:
+        for k in range(3):
+            leader = _propose_committed(nodes, {"op": k})
+        term_before = leader.current_term
+        # every node holds the three entries before it stops (a follower
+        # learns the last commit a heartbeat later)
+        _wait_applied(applied, [n.id for n in nodes],
+                      [{"op": 0}, {"op": 1}, {"op": 2}], timeout=30.0)
+    finally:
+        for n in nodes:
+            n.stop()
 
     # restart from disk: term + log survive
     net2, nodes2, applied2 = make_cluster(3, tmp_path)
@@ -335,14 +366,7 @@ def test_persistence_across_restart(tmp_path):
     for n in nodes2:
         n.start()
     try:
-        leader2 = wait_leader(nodes2)
-        assert leader2.propose({"op": "post-restart"}, timeout=5)
-        deadline = time.time() + 5
-        while time.time() < deadline:
-            if applied2[leader2.id] and \
-                    applied2[leader2.id][-1] == {"op": "post-restart"}:
-                break
-            time.sleep(0.02)
+        leader2 = _propose_committed(nodes2, {"op": "post-restart"})
         # committed entries re-applied in order after restart
         assert applied2[leader2.id] == [{"op": 0}, {"op": 1}, {"op": 2},
                                         {"op": "post-restart"}]
