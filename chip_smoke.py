@@ -130,26 +130,45 @@ Phases, each printing one JSON line:
                  and reconstructs
   21. cli        the port from its command line, each server in its own
                  process: three `python -m seaweedfs_tpu_torch.cli master
-                 -peers A,B,C -volumeSizeLimitMB 1024` (Raft) and four
-                 `... volume -mserver A,B,C -rack r0|r1` on the card (the
-                 default coder, K1), started through this script's
-                 `volume-child` entry, which reports each process's kernel
-                 launch counts in a JSON file (reset with SIGUSR1). One
+                 -peers A,B,C -volumeSizeLimitMB 1024 -grpc` (Raft) and
+                 four `... volume -mserver A,B,C -rack r0|r1 -grpc` on the
+                 card (the default coder, K1), each with its gRPC plane on
+                 its port + 10000, the servers started through this
+                 script's `volume-child` entry, which reports each
+                 process's kernel launch counts in a JSON file (reset with
+                 SIGUSR1). The shell and backup commands run through its
+                 `cli-child` entry, which counts the HTTP requests and
+                 volume-server RPCs each sends. One
                  leader elected and every server registered with it;
                  `benchmark -n 4096 -size 1024 -concurrency 16`;
                  --cli-volume-mb (512) of seeded needles uploaded through
                  client.operation; `fix` on a copy of the sealed .dat,
-                 held against the server's .idx; `ec encode` (K1 on the
-                 source, one launch per batch; shards sha256-equal to
-                 CpuCoderMT's); GETs on 1 and 16 threads; the server
+                 held against the server's .idx; `ec encode` over gRPC
+                 (K1 on the source, one launch per batch; shards
+                 sha256-equal to CpuCoderMT's; VolumeEcShardsGenerate
+                 once, no admin request over HTTP); GETs on 1 and 16
+                 threads; the server
                  holding the most shards SIGKILLed; degraded GETs on 1 and
                  16 threads (one K1 launch per interval, counted on each
                  server); the Raft leader SIGKILLed, a new leader elected
                  and the live servers re-registered (the failover time);
                  one more upload, its volume id and key never minted
-                 before; `lock` / `ec.rebuild` / `unlock` piped into `weed
-                 shell` (K1 on the rebuilder, sha256-equal; any `error:`
-                 fails); GETs; `ec decode` (the .dat sha256-equal to the
+                 before; `backup` of that volume (a full copy), one more
+                 needle, `backup` again (an incremental catch-up over the
+                 VolumeTailSender stream, no HTTP copy); from this process
+                 VolumeEcShardsGenerate of that volume through the port's
+                 GrpcVolumeClient (K1 on its server, sha256-equal to
+                 CpuCoderMT's) and VolumeEcShardsDelete, then two more
+                 volumes of --cli-volume-mb / 4 allocated on that server
+                 and generated at once from two threads (K1 launches =
+                 both volumes' batches, each sha256-equal); `master.follower
+                 -grpcAddresses` over the masters' gRPC planes with a dead
+                 -masters address answering /dir/lookup as the leader does
+                 from its pushed vidMap; `lock` / `ec.rebuild` / `unlock`
+                 piped into `weed shell` over gRPC (K1 on the rebuilder,
+                 sha256-equal; VolumeEcShardsRebuild once, no admin
+                 request over HTTP; any `error:` fails); GETs; `ec decode`
+                 (the .dat sha256-equal to the
                  source's); every needle read back and four through `weed
                  download`. Each server holds a CUDA context (nvidia-smi
                  lists one compute app per process; its /dev/nvidiaN is
@@ -157,7 +176,8 @@ Phases, each printing one JSON line:
   22. filer      the filer in front of the card's volume servers, each a
                  process of its own: one `... master -volumeSizeLimitMB
                  1024`, four `... volume` on the card (racks r0 / r1,
-                 through `volume-child`) and `... filer -store lsm -dir D`.
+                 through `volume-child`) and `... filer -store lsm -dir D
+                 -grpc`.
                  A seeded tree of --filer-mb (1000) MiB in 64 directories
                  three levels deep: 3900 files of 1-128 KiB, 40 of 256
                  KiB-4 MiB (one chunk: the filer answers them with a 302 to
@@ -180,11 +200,17 @@ Phases, each printing one JSON line:
                  first (its partial chain: GF partial products on the
                  host, no K1 launch, a fallback to copy + rebuild fails
                  the step) and by `ec.rebuild` for the rest (K1 on the
-                 rebuilders, one launch per batch), every shard
-                 registered once; volume.fsck (no missing chunk), fs.du,
-                 fs.ls; `fs.rm -r` of one top directory, `volume.fsck
-                 -fix` (any orphan one of the removed chunks), the removed
-                 chunks gone from the EC volumes and the filer's chunk GC
+                 rebuilders, one launch per batch); where the queue came
+                 first, the shards it rebuilt are unmounted and deleted
+                 from their holder and `ec.rebuild` rebuilds them at once
+                 on the card. Every rebuilt shard sha256-equal to the one
+                 the killed server held, every shard registered once; volume.fsck (no missing chunk), fs.du,
+                 fs.ls; one leaf directory listed through the port's
+                 GrpcFilerClient equal to its HTTP listing (names, sizes,
+                 chunk file ids); `fs.rm -r` of one top directory,
+                 `volume.fsck -fix` (any orphan one of the removed
+                 chunks), the removed chunks gone from the EC volumes and
+                 the filer's chunk GC
                  counting each deleted, none abandoned. nvidia-smi lists
                  the smoke and the live volume servers only; the filer
                  holds no /dev/nvidiaN
@@ -2734,15 +2760,106 @@ def volume_child(counts_path: str, argv: list[str]) -> int:
     return 0
 
 
-def _free_ports(n: int) -> list[int]:
-    """n local ports that were free a moment ago (bound, then closed), in
-    ascending order."""
-    import socket
-    socks = [socket.socket() for _ in range(n)]
+def cli_child(routes_path: str, argv: list[str]) -> int:
+    """The entry that `cli_phase` runs a shell or backup command through:
+    it counts, in this process, every HTTP request the port's http_call
+    sends ("METHOD /path") and every RPC the port's GrpcVolumeClient
+    issues (by method), runs seaweedfs_tpu_torch.cli.main(argv), and
+    writes the counts into the JSON file `routes_path` when it ends, with
+    the seconds spent importing the CLI, importing the gRPC client (which
+    the counting needs even where the command sends no RPC), in cli.main,
+    in the shell's per-node gRPC probes (`_grpc_client`), in unary RPCs
+    and in HTTP requests. The commands' code keeps no count of its
+    own."""
+    import collections
+    import urllib.parse
+    t0 = time.monotonic()
+    from seaweedfs_tpu_torch import cli
+    from seaweedfs_tpu_torch.shell import commands
+    from seaweedfs_tpu_torch.utils import httpd
+    t1 = time.monotonic()
+    from seaweedfs_tpu_torch.server import volume_grpc
+    routes = {"http": collections.Counter(), "grpc": collections.Counter()}
+    seconds = collections.Counter(import_s=t1 - t0,
+                                  grpc_import_s=time.monotonic() - t1)
+    lock = threading.Lock()
+
+    def count(kind: str, key: str) -> None:
+        with lock:
+            routes[kind][key] += 1
+
+    def timed(fn, what: str):
+        def call(*a, **kw):
+            t = time.monotonic()
+            try:
+                return fn(*a, **kw)
+            finally:
+                with lock:
+                    seconds[what] += time.monotonic() - t
+        return call
+
+    def counted_http(fn):
+        def call(method, url, *a, **kw):
+            count("http", f"{method} {urllib.parse.urlsplit(url).path}")
+            return fn(method, url, *a, **kw)
+        return timed(call, "http_s")
+
+    def counted_rpc(fn, method=None):
+        def call(self, *a, **kw):
+            count("grpc", method or a[0])
+            return fn(self, *a, **kw)
+        return call
+
+    httpd.http_call = counted_http(httpd.http_call)
+    client = volume_grpc.GrpcVolumeClient
+    client._unary = timed(counted_rpc(client._unary), "rpc_s")
+    client._json_unary = timed(counted_rpc(client._json_unary), "rpc_s")
+    for attr, method in (("copy_file", "CopyFile"),
+                         ("ec_shard_read", "VolumeEcShardRead"),
+                         ("volume_tail_needles", "VolumeTailSender"),
+                         ("volume_incremental_copy",
+                          "VolumeIncrementalCopy")):
+        setattr(client, attr, counted_rpc(getattr(client, attr), method))
+    commands.ShellContext._grpc_client = timed(
+        commands.ShellContext._grpc_client, "probe_s")
+    t1 = time.monotonic()
     try:
-        for s in socks:
+        cli.main(argv)
+    finally:
+        seconds["main_s"] = time.monotonic() - t1
+        with open(routes_path, "w") as f:
+            json.dump({**{k: dict(v) for k, v in routes.items()},
+                       "seconds": dict(seconds)}, f)
+    return 0
+
+
+GRPC_OFFSET = 10000  # `-grpc` serves a process's gRPC plane on port + this
+
+
+def _free_ports(n: int, grpc: bool = False) -> list[int]:
+    """n local ports that were free a moment ago (bound, then closed), in
+    ascending order; with grpc=True each port's gRPC twin, port +
+    GRPC_OFFSET, was free too."""
+    import socket
+    socks: list = []
+    ports: list[int] = []
+    try:
+        while len(ports) < n:
+            s = socket.socket()
+            socks.append(s)
             s.bind(("127.0.0.1", 0))
-        return sorted(s.getsockname()[1] for s in socks)
+            port = s.getsockname()[1]
+            if grpc:
+                if port + GRPC_OFFSET > 65535:
+                    continue
+                twin = socket.socket()
+                socks.append(twin)
+                try:
+                    twin.bind(("127.0.0.1", port + GRPC_OFFSET))
+                except OSError:
+                    continue
+            ports.append(port)
+        return sorted(ports)
     finally:
         for s in socks:
             s.close()
@@ -2787,7 +2904,9 @@ class _CliCluster:
         self.masters: dict[str, subprocess.Popen] = {}
         self.servers: dict[str, subprocess.Popen] = {}
         self.filers: dict[str, subprocess.Popen] = {}
+        self.followers: dict[str, subprocess.Popen] = {}
         self.filer_starts = 0
+        self.counted = 0
         self.rack: dict[str, str] = {}
         self.killed: set[str] = set()
         self.resets: dict[str, int] = {}
@@ -2796,11 +2915,13 @@ class _CliCluster:
     def _spawn(self, name: str, argv: list[str]) -> subprocess.Popen:
         log = open(os.path.join(self.root, f"{name}.log"), "w")
         try:
-            return subprocess.Popen(argv, cwd=self.repo, env=self.env,
-                                    stdout=log, stderr=subprocess.STDOUT,
-                                    stdin=subprocess.DEVNULL)
+            p = subprocess.Popen(argv, cwd=self.repo, env=self.env,
+                                 stdout=log, stderr=subprocess.STDOUT,
+                                 stdin=subprocess.DEVNULL)
         finally:
             log.close()
+        p.log_path = log.name
+        return p
 
     def cli(self, *args: str, stdin: str = "", timeout: float = 600.0):
         """Run one `python -m seaweedfs_tpu_torch.cli` command to its end;
@@ -2815,9 +2936,35 @@ class _CliCluster:
                                  f"{p.stderr[-2000:]}")
         return p.stdout, time.monotonic() - t0
 
+    def cli_counted(self, *args: str, stdin: str = "",
+                    timeout: float = 600.0):
+        """`cli` through this script's `cli-child` entry: returns (stdout,
+        seconds, routes), routes being the HTTP requests ("METHOD /path")
+        and volume-server RPCs the command sent, each with its count. A
+        command that sent no RPC would not have imported the gRPC client
+        run plainly, so its seconds leave out that import, which
+        `cli-child` makes to count."""
+        self.counted += 1
+        path = os.path.join(self.root, f"routes_{self.counted}.json")
+        t0 = time.monotonic()
+        p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "cli-child", path, *args], cwd=self.repo,
+                           env=self.env, input=stdin, capture_output=True,
+                           text=True, timeout=timeout)
+        if p.returncode != 0:
+            raise AssertionError(f"cli {args[0]} exited {p.returncode}: "
+                                 f"{p.stderr[-2000:]}")
+        wall = time.monotonic() - t0
+        with open(path) as f:
+            routes = json.load(f)
+        if not routes["grpc"]:
+            wall -= routes["seconds"]["grpc_import_s"]
+        return p.stdout, wall, routes
+
     def start_masters(self, volume_limit_mb: int,
-                      count: int = CLI_MASTERS) -> list[str]:
-        ports = _free_ports(count)
+                      count: int = CLI_MASTERS,
+                      grpc: bool = False) -> list[str]:
+        ports = _free_ports(count, grpc=grpc)
         urls = [f"127.0.0.1:{p}" for p in ports]
         for url, port in zip(urls, ports):
             mdir = os.path.join(self.root, f"m{port}")
@@ -2827,12 +2974,15 @@ class _CliCluster:
             self.masters[url] = self._spawn(f"master_{port}", [
                 sys.executable, "-m", "seaweedfs_tpu_torch.cli", "master",
                 "-port", str(port), "-mdir", mdir, *peers,
-                "-volumeSizeLimitMB", str(volume_limit_mb)])
+                "-volumeSizeLimitMB", str(volume_limit_mb),
+                *(["-grpc"] if grpc else [])])
         return urls
 
-    def start_filer(self, master: str, port: int, store_dir: str) -> str:
+    def start_filer(self, master: str, port: int, store_dir: str,
+                    grpc: bool = False) -> str:
         """`weed filer -store lsm -dir store_dir` on `port` (again after a
-        kill: the same port, as the master still lists it)."""
+        kill: the same port, as the master still lists it), with -grpc its
+        gRPC plane on port + GRPC_OFFSET."""
         url = f"127.0.0.1:{port}"
         self.killed.discard(url)
         self.start_s[url] = time.monotonic()
@@ -2841,11 +2991,23 @@ class _CliCluster:
             f"filer_{port}_{self.filer_starts}", [
                 sys.executable, "-m", "seaweedfs_tpu_torch.cli", "filer",
                 "-port", str(port), "-master", master, "-store", "lsm",
-                "-dir", store_dir])
+                "-dir", store_dir, *(["-grpc"] if grpc else [])])
         return url
 
-    def start_servers(self, masters: list[str]) -> list[str]:
-        ports = _free_ports(CLI_SERVERS)
+    def start_follower(self, port: int, masters: str, grpc: str) -> str:
+        """`weed master.follower -masters masters -grpcAddresses grpc` on
+        `port`."""
+        url = f"127.0.0.1:{port}"
+        self.start_s[url] = time.monotonic()
+        self.followers[url] = self._spawn(f"follower_{port}", [
+            sys.executable, "-m", "seaweedfs_tpu_torch.cli",
+            "master.follower", "-port", str(port), "-masters", masters,
+            "-grpcAddresses", grpc])
+        return url
+
+    def start_servers(self, masters: list[str],
+                      grpc: bool = False) -> list[str]:
+        ports = _free_ports(CLI_SERVERS, grpc=grpc)
         urls = []
         for i, port in enumerate(ports):
             url = f"127.0.0.1:{port}"
@@ -2858,7 +3020,7 @@ class _CliCluster:
                 self.counts_path(url), "volume", "-port", str(port),
                 "-dir", os.path.join(self.root, f"v{port}"),
                 "-mserver", ",".join(masters), "-rack", self.rack[url],
-                "-dataCenter", "dc1"])
+                "-dataCenter", "dc1", *(["-grpc"] if grpc else [])])
         return urls
 
     def counts_path(self, url: str) -> str:
@@ -2872,10 +3034,13 @@ class _CliCluster:
         return [u for u in self.servers if u not in self.killed]
 
     def check_running(self) -> None:
-        for url, p in {**self.masters, **self.servers,
-                       **self.filers}.items():
+        for url, p in {**self.masters, **self.servers, **self.filers,
+                       **self.followers}.items():
             if url not in self.killed and p.poll() is not None:
-                raise AssertionError(f"{url} exited {p.returncode}")
+                with open(p.log_path, errors="replace") as f:
+                    tail = f.read()[-1500:]
+                raise AssertionError(f"{url} exited {p.returncode}; its "
+                                     f"log ends: {tail}")
 
     def wait_up(self, urls: list[str], path: str) -> dict[str, float]:
         """Wait for each process to answer `path`; returns its start-up
@@ -2972,8 +3137,8 @@ class _CliCluster:
         return per
 
     def kill(self, url: str) -> None:
-        procs = next(g for g in (self.servers, self.filers, self.masters)
-                     if url in g)
+        procs = next(g for g in (self.servers, self.filers, self.masters,
+                                 self.followers) if url in g)
         procs[url].kill()
         procs[url].wait(timeout=60)
         self.killed.add(url)
@@ -2983,7 +3148,8 @@ class _CliCluster:
         server's drain announcement needs a master); kill what outlives
         60 s. Returns each process's exit code."""
         codes = {}
-        for group in (self.filers, self.servers, self.masters):
+        for group in (self.followers, self.filers, self.servers,
+                      self.masters):
             for p in group.values():
                 if p.poll() is None:
                     p.send_signal(signal.SIGTERM)
@@ -3022,6 +3188,173 @@ def _live_index(idx_path: str) -> dict:
     return live
 
 
+def grpc_steps(cl: "_CliCluster", root: str, leader: str,
+               masters: list[str], mc, vid: int, vid2: int, key2: int,
+               after: tuple, rng, launched, steps: dict,
+               pair_mb: int) -> None:
+    """The `cli` phase's gRPC-only routes, on the volume `vid2` that one
+    `weed upload` made after the failover (`after` is its needle) and on
+    the EC volume `vid`:
+      - `weed backup` of vid2 (a full copy over HTTP), one more needle
+        POSTed to vid2, `weed backup` again: an incremental catch-up over
+        the VolumeTailSender stream, no HTTP copy;
+      - VolumeEcShardsGenerate of vid2 issued from this process through
+        the port's GrpcVolumeClient (K1 on vid2's server, one launch per
+        batch; the shards sha256-equal to CpuCoderMT's), then
+        VolumeEcShardsDelete of them;
+      - two volumes of `pair_mb` MiB of seeded needles allocated on that
+        server and generated at once, two VolumeEcShardsGenerate calls
+        from two threads through one GrpcVolumeClient (K1 launches = the
+        batches of both; each volume's shards sha256-equal to
+        CpuCoderMT's), then their shards and volumes deleted;
+      - `weed master.follower -grpcAddresses` over the three masters' gRPC
+        planes, its -masters an address where nothing listens: it answers
+        /dir/lookup of vid2 and vid from the vidMap the leader's
+        KeepConnected stream pushed, as the leader does."""
+    from seaweedfs_tpu_torch.ops.rs_cpu import CpuCoderMT
+    from seaweedfs_tpu_torch.pb import volume_server_pb2 as vpb
+    from seaweedfs_tpu_torch.server.volume_grpc import GrpcVolumeClient
+    from seaweedfs_tpu_torch.storage.erasure_coding import layout
+    from seaweedfs_tpu_torch.storage.volume import Volume
+    from seaweedfs_tpu_torch.utils.httpd import http_call
+    total = layout.TOTAL_SHARDS_COUNT
+    mc.invalidate(vid2)
+    (holder,) = [loc["url"] for loc in mc.lookup_volume(vid2)]
+    bak = os.path.join(root, "backup")
+    argv = ("backup", "-master", leader, "-volumeId", str(vid2),
+            "-output", bak)
+
+    # weed backup twice: a full copy, then the tail since it
+    cl.reset_counts()
+    out, wall_full, full = cl.cli_counted(*argv)
+    if full["http"].get("GET /admin/volume_file") != 2 or full["grpc"]:
+        raise AssertionError(f"first weed backup: {full}")
+    size_full = os.path.getsize(os.path.join(bak, f"{vid2}.dat"))
+    data = rng.bytes(50_000)
+    key3 = key2 + 1
+    status, body, _ = http_call(
+        "POST", f"http://{holder}/{vid2},{key3:x}{0x5eed:08x}", body=data)
+    if status >= 300:
+        raise AssertionError(f"POST to volume {vid2}: {status} {body[:200]}")
+    out, wall_inc, inc = cl.cli_counted(*argv)
+    if inc["http"].get("GET /admin/volume_file") or \
+            inc["grpc"].get("VolumeTailSender") != 1:
+        raise AssertionError(f"second weed backup took no tail: {inc}")
+    grown = os.path.getsize(os.path.join(bak, f"{vid2}.dat")) > size_full
+    v = Volume(bak, "", vid2)
+    try:
+        if not grown or bytes(v.read_needle(key3).data) != data or \
+                bytes(v.read_needle(key2).data) != after[1]:
+            raise AssertionError("the incremental backup lacks a needle")
+    finally:
+        v.close()
+    launched("backup", {})
+    steps["backup"] = {"full_s": wall_full, "incremental_s": wall_inc,
+                       "full_routes": full, "incremental_routes": inc}
+
+    # VolumeEcShardsGenerate from this process, over gRPC
+    base = os.path.join(cl.vdir(holder), str(vid2))
+    gaddr = f"127.0.0.1:{int(holder.rsplit(':', 1)[1]) + GRPC_OFFSET}"
+    cl.reset_counts()
+    client = GrpcVolumeClient(gaddr)
+    try:
+        t0 = time.monotonic()
+        client._unary("VolumeEcShardsGenerate",
+                      vpb.VolumeEcShardsGenerateRequest(volume_id=vid2),
+                      vpb.VolumeEcShardsGenerateResponse)
+        wall = time.monotonic() - t0
+        dat_size = os.path.getsize(base + ".dat")
+        batches = _encode_batches(dat_size, layout.DATA_SHARDS_COUNT)
+        per = launched("grpc_generate", {holder: batches})
+        sha = [sha256_file(base + layout.shard_ext(i)) for i in range(total)]
+        if sha != cpu_shard_sha(base, dat_size, CpuCoderMT()):
+            raise AssertionError("gRPC-generated shards differ from "
+                                 "CpuCoderMT's")
+        client._unary("VolumeEcShardsDelete",
+                      vpb.VolumeEcShardsDeleteRequest(
+                          volume_id=vid2, shard_ids=list(range(total))),
+                      vpb.VolumeEcShardsDeleteResponse)
+    finally:
+        client.close()
+    if any(os.path.exists(base + layout.shard_ext(i)) for i in range(total)):
+        raise AssertionError("VolumeEcShardsDelete left shard files")
+    steps["grpc_generate"] = _step(dat_size, wall, batches=batches,
+                                   launches=per,
+                                   shards_sha256_equal_to_cpu=total)
+
+    # two VolumeEcShardsGenerate at once on that server: each call's
+    # pipelined encode builds its own device lane (side stream, pinned
+    # buffers) on the server's one coder
+    pair = [vid2 + 100, vid2 + 101]
+    for v in pair:
+        _upload_volume(holder, v, pair_mb, int(rng.integers(1 << 31)))
+    spans: dict = {}
+    cl.reset_counts()
+    client = GrpcVolumeClient(gaddr)
+
+    def generate(v: int) -> None:
+        t = time.monotonic()
+        client._unary("VolumeEcShardsGenerate",
+                      vpb.VolumeEcShardsGenerateRequest(volume_id=v),
+                      vpb.VolumeEcShardsGenerateResponse)
+        spans[v] = (t, time.monotonic())
+
+    try:
+        t0 = time.monotonic()
+        _run_threads([(generate, (v,), {}) for v in pair])
+        wall = time.monotonic() - t0
+        sizes = {v: os.path.getsize(os.path.join(cl.vdir(holder),
+                                                 f"{v}.dat")) for v in pair}
+        batches = sum(_encode_batches(n, layout.DATA_SHARDS_COUNT)
+                      for n in sizes.values())
+        per = launched("grpc_generate_pair", {holder: batches})
+        for v in pair:
+            b = os.path.join(cl.vdir(holder), str(v))
+            if [sha256_file(b + layout.shard_ext(i)) for i in range(total)] \
+                    != cpu_shard_sha(b, sizes[v], CpuCoderMT()):
+                raise AssertionError(f"volume {v}'s shards, generated beside "
+                                     f"another, differ from CpuCoderMT's")
+            client._unary("VolumeEcShardsDelete",
+                          vpb.VolumeEcShardsDeleteRequest(
+                              volume_id=v, shard_ids=list(range(total))),
+                          vpb.VolumeEcShardsDeleteResponse)
+    finally:
+        client.close()
+    for v in pair:
+        _vs_json(holder, "/admin/delete_volume", {"volume_id": v})
+    steps["grpc_generate_pair"] = _step(
+        sum(sizes.values()), wall, batches=batches, launches=per,
+        call_s={v: e - t for v, (t, e) in spans.items()},
+        overlap_s=min(e for _, e in spans.values()) -
+        max(t for t, _ in spans.values()),
+        shards_sha256_equal_to_cpu=total * len(pair))
+
+    # master.follower fed by KeepConnected
+    dead, port = _free_ports(2)
+    grpc_addrs = ",".join(f"127.0.0.1:{int(m.rsplit(':', 1)[1]) + GRPC_OFFSET}"
+                          for m in masters)
+    follower = cl.start_follower(port, f"127.0.0.1:{dead}", grpc_addrs)
+    up = cl.wait_up([follower], "/cluster/status")[follower]
+
+    def urls(where: str, v: int) -> set:
+        st, body, _ = http_call("GET", f"http://{where}/dir/lookup"
+                                       f"?volumeId={v}", timeout=10)
+        return {loc["url"] for loc in json.loads(body)["locations"]} \
+            if st == 200 else set()
+
+    want = {v: urls(leader, v) for v in (vid2, vid)}
+    if not all(want.values()):
+        raise AssertionError(f"the leader's lookups: {want}")
+    t0 = time.monotonic()
+    _wait_for(lambda: all(urls(follower, v) == want[v] for v in want),
+              "master.follower to answer from its pushed vidMap",
+              timeout=60.0)
+    steps["follower"] = {"startup_s": up,
+                         "answered_s": time.monotonic() - t0,
+                         "lookups": {v: sorted(u) for v, u in want.items()}}
+    cl.kill(follower)
+
+
 def cli_phase(work: str, volume_mb: int, seed: int,
               counts: PathCounts) -> None:
     """21. The port from its command line, each server in its own process:
@@ -3045,9 +3378,10 @@ def cli_phase(work: str, volume_mb: int, seed: int,
     contexts: dict = {}
     mc = None
     try:
-        # 1. three masters with -peers, four volume servers on the card
-        masters = cl.start_masters(1024)
-        servers = cl.start_servers(masters)
+        # 1. three masters with -peers, four volume servers on the card,
+        # each with -grpc
+        masters = cl.start_masters(1024, grpc=True)
+        servers = cl.start_servers(masters, grpc=True)
         startup = cl.wait_up(masters, "/cluster/status")
         startup.update(cl.wait_up(servers, "/status"))
         t0 = time.monotonic()
@@ -3075,6 +3409,22 @@ def cli_phase(work: str, volume_mb: int, seed: int,
 
         def launched(step: str, expect: dict[str, int]) -> dict:
             return cl.launched(step, expect, counts, "cli", name)
+
+        def over_grpc(step: str, routes: dict, rpcs: dict) -> dict:
+            """The shell's volume-server calls in `step` went over gRPC:
+            each RPC of `rpcs` issued (as often as its count; None: at
+            least once) and no admin request sent over HTTP (the master's
+            lock and unlock are HTTP in the reference too)."""
+            http = {k: n for k, n in routes["http"].items()
+                    if k.startswith("POST /admin/") and k not in (
+                        "POST /admin/lock", "POST /admin/unlock")}
+            bad = {r: routes["grpc"].get(r) for r, n in rpcs.items()
+                   if (routes["grpc"].get(r) or 0) != n
+                   and not (n is None and routes["grpc"].get(r))}
+            if http or bad:
+                raise AssertionError(f"{step}: HTTP admin calls {http}, "
+                                     f"RPCs {bad} of {routes['grpc']}")
+            return routes
 
         # 2. weed benchmark
         cl.reset_counts()
@@ -3139,13 +3489,18 @@ def cli_phase(work: str, volume_mb: int, seed: int,
                                  f"{len(live)} live entries")
         steps["fix"] = _step(dat_size, wall, live_entries=len(live))
 
-        # 5. weed ec encode: generate on the source (K1), spread
+        # 5. weed ec encode over gRPC: generate on the source (K1), spread
         cl.reset_counts()
-        out, wall = cl.cli("ec", "encode", "-master", leader,
-                           "-volumeId", str(vid))
+        out, wall, routes = cl.cli_counted("ec", "encode", "-master", leader,
+                                           "-volumeId", str(vid))
         enc = json.loads(out)
         batches = _encode_batches(dat_size, layout.DATA_SHARDS_COUNT)
         launches["encode"] = launched("encode", {src: batches})
+        over_grpc("encode", routes, {
+            "VolumeMarkReadonly": None, "VolumeEcShardsGenerate": 1,
+            "VolumeEcShardsCopy": None, "VolumeEcShardsMount": None,
+            "VolumeEcShardsUnmount": 1, "VolumeEcShardsDelete": 1,
+            "VolumeDelete": 1})
         if [r["vid"] for r in enc] != [vid] or enc[0]["source"] != src:
             raise AssertionError(f"weed ec encode printed {enc}")
         placement = {name[u]: s for u, s in enc[0]["placement"].items()}
@@ -3163,7 +3518,9 @@ def cli_phase(work: str, volume_mb: int, seed: int,
             raise AssertionError("spread shards differ from CpuCoderMT's")
         dat_sha = sha256_file(os.path.join(keep, f"{vid}.dat"))
         shutil.rmtree(keep)
-        steps["encode"] = _step(dat_size, wall, batches=batches)
+        steps["encode"] = _step(dat_size, wall, batches=batches,
+                                rpcs=routes["grpc"],
+                                split=routes["seconds"])
 
         def gets(step: str, urls: list[str], threads: int) -> dict:
             """GET every needle on `threads` threads; K1 launched once per
@@ -3234,11 +3591,13 @@ def cli_phase(work: str, volume_mb: int, seed: int,
         steps["upload_after_failover"] = {"fid": fid,
                                           "key_above_every_earlier": key2 >
                                           max(keys)}
+        grpc_steps(cl, root, leader, masters, mc, vid, vid2, key2, after,
+                   rng, launched, steps, volume_mb // 4)
 
-        # 11. lock / ec.rebuild / unlock piped into weed shell
+        # 11. lock / ec.rebuild / unlock piped into weed shell, over gRPC
         cl.reset_counts()
-        out, wall = cl.cli("shell", "-master", leader,
-                           stdin="lock\nec.rebuild\nunlock\n")
+        out, wall, routes = cl.cli_counted(
+            "shell", "-master", leader, stdin="lock\nec.rebuild\nunlock\n")
         replies = _repl_outputs(out)
         plans = replies[1] if len(replies) == 3 else None
         if replies[0] != {"locked": True} or replies[-1] != {
@@ -3250,13 +3609,18 @@ def cli_phase(work: str, volume_mb: int, seed: int,
             cl.vdir(rebuilder), f"{vid}{layout.shard_ext(lost[0])}"))
         batches = -(-shard_size // encoder.DEFAULT_BATCH_SIZE)
         launches["rebuild"] = launched("rebuild", {rebuilder: batches})
+        over_grpc("rebuild", routes, {"VolumeEcShardsCopy": None,
+                                      "VolumeEcShardsRebuild": 1,
+                                      "VolumeEcShardsMount": 1})
         for sid in lost:
             if sha256_file(os.path.join(
                     cl.vdir(rebuilder),
                     f"{vid}{layout.shard_ext(sid)}")) != shard_sha[sid]:
                 raise AssertionError(f"rebuilt shard {sid} differs")
         steps["rebuild"] = _step(shard_size * len(lost), wall,
-                                 batches=batches, rebuilder=name[rebuilder])
+                                 batches=batches, rebuilder=name[rebuilder],
+                                 rpcs=routes["grpc"],
+                                 split=routes["seconds"])
 
         # 12. GETs after the rebuild
         holders = _ec_holders(mc, vid)
@@ -3266,16 +3630,20 @@ def cli_phase(work: str, volume_mb: int, seed: int,
                                     for u in us}), 1)
         on_card("after_rebuild")
 
-        # 13. weed ec decode
+        # 13. weed ec decode, over gRPC
         cl.reset_counts()
-        out, wall = cl.cli("ec", "decode", "-master", leader,
-                           "-volumeId", str(vid))
+        out, wall, routes = cl.cli_counted("ec", "decode", "-master", leader,
+                                           "-volumeId", str(vid))
         dec = json.loads(out)
         launched("decode", {})
+        over_grpc("decode", routes, {"VolumeEcShardsToVolume": 1})
         if sha256_file(os.path.join(cl.vdir(dec["collector"]),
                                     f"{vid}.dat")) != dat_sha:
             raise AssertionError("the decoded .dat differs from the source's")
-        steps["decode"] = _step(dat_size, wall, collector=name[dec["collector"]])
+        steps["decode"] = _step(dat_size, wall,
+                                collector=name[dec["collector"]],
+                                rpcs=routes["grpc"],
+                                split=routes["seconds"])
 
         # 14. every needle read back; a sample through weed download
         def readable():
@@ -3329,6 +3697,7 @@ FILER_SMALL = 3900            # files of 1-128 KiB
 FILER_MID = 40                # one chunk of 256 KiB-4 MiB: the 302 route
 FILER_LEAVES = (4, 4, 4)      # 64 directories in three levels
 FILER_COLLECTION = "filer_smoke"
+QUEUE_GRACE_S = 60.0          # the master repair queue's scan_grace_s
 
 
 def make_filer_tree(root: str, total_mb: int, seed: int) -> list:
@@ -3422,6 +3791,33 @@ def _filer_gets(filer: str, files: list, threads: int = 1):
                         "redirected": len(redirected)}, set(redirected)
 
 
+def grpc_listing(filer: str) -> dict:
+    """One leaf directory of the filer phase's tree listed through the
+    port's GrpcFilerClient (ListEntries on the filer's gRPC plane) and
+    through the filer's HTTP listing: the same entries (name, directory
+    flag, size, chunk file ids), in the same order."""
+    from seaweedfs_tpu_torch.server.filer_grpc import GrpcFilerClient
+    from seaweedfs_tpu_torch.shell.fs_commands import FsContext
+    path = "/data/tree/a1/b2/c3"
+    http = [(e["FullPath"].rsplit("/", 1)[1], e["IsDirectory"],
+             e["FileSize"], [c["fid"] for c in e["chunks"]])
+            for e in FsContext(filer).ls(path, limit=1 << 20)]
+    port = int(filer.rsplit(":", 1)[1]) + GRPC_OFFSET
+    client = GrpcFilerClient(f"127.0.0.1:{port}")
+    try:
+        t0 = time.monotonic()
+        entries = client.list_entries(path, limit=1 << 20)
+        wall = time.monotonic() - t0
+    finally:
+        client.close()
+    grpc = [(e.name, e.is_directory, e.attributes.file_size,
+             [c.file_id for c in e.chunks]) for e in entries]
+    if not http or grpc != http:
+        raise AssertionError(f"{path}: gRPC listing {grpc[:5]}..., HTTP "
+                             f"listing {http[:5]}...")
+    return {"path": path, "entries": len(grpc), "seconds": wall}
+
+
 def filer_phase(work: str, total_mb: int, seed: int,
                 counts: PathCounts) -> None:
     """22. The filer in front of the card's volume servers, each server a
@@ -3456,7 +3852,8 @@ def filer_phase(work: str, total_mb: int, seed: int,
         startup = cl.wait_up([master], "/cluster/status")
         # the filer announces itself to the master as it starts
         store_dir = os.path.join(root, "filer_store")
-        filer = cl.start_filer(master, _free_ports(1)[0], store_dir)
+        filer = cl.start_filer(master, _free_ports(1, grpc=True)[0],
+                               store_dir, grpc=True)
         startup.update(cl.wait_up(servers, "/status"))
         startup.update(cl.wait_up([filer], "/"))
         _wait_for(lambda: cl.registered(master) == set(servers),
@@ -3488,8 +3885,10 @@ def filer_phase(work: str, total_mb: int, seed: int,
                                      f"the filer {filer_holds}")
 
         def shell(*lines: str):
-            out, wall = cl.cli("shell", "-master", master,
-                               stdin="".join(ln + "\n" for ln in lines))
+            out, wall, routes = cl.cli_counted(
+                "shell", "-master", master,
+                stdin="".join(ln + "\n" for ln in lines))
+            shell.routes = routes
             return _repl_outputs(out), wall
 
         def vol_stats() -> dict:
@@ -3603,7 +4002,12 @@ def filer_phase(work: str, total_mb: int, seed: int,
                   "every shard to register", timeout=60.0)
         steps["ec_encode"] = _step(sum(d for _, d in vols.values()), wall,
                                    volumes=len(vols),
-                                   batches=sum(expect.values()))
+                                   batches=sum(expect.values()),
+                                   http_admin_posts=sum(
+                                       n for k, n in
+                                       shell.routes["http"].items()
+                                       if k.startswith("POST /admin/")),
+                                   split=shell.routes["seconds"])
         placement = {r["vid"]: r["placement"] for r in enc}
 
         # 6. SIGKILL the server holding the most shards
@@ -3621,7 +4025,8 @@ def filer_phase(work: str, total_mb: int, seed: int,
         # chunk cache is cold, its namespace comes back from the store
         t0 = time.monotonic()
         cl.kill(filer)
-        cl.start_filer(master, int(filer.rsplit(":", 1)[1]), store_dir)
+        cl.start_filer(master, int(filer.rsplit(":", 1)[1]), store_dir,
+                       grpc=True)
         steps["filer_restart"] = {
             "first_answer_s": cl.wait_up([filer], "/")[filer],
             "since_kill_s": time.monotonic() - t0}
@@ -3670,47 +4075,71 @@ def filer_phase(work: str, total_mb: int, seed: int,
         degraded("get_degraded_16", files, 16)
         on_card("degraded")
 
+        def shell_rebuild(step: str, want: dict) -> dict:
+            """`lock` / `ec.rebuild` / `unlock`: it must plan exactly the
+            volumes of `want` (vid -> lost shard ids) and rebuild those
+            shards, with K1 on each rebuilder, one launch per batch, and
+            the rebuilt shards sha256-equal to the ones the killed server
+            held."""
+            cl.reset_counts()
+            replies, wall = shell("lock", "ec.rebuild", "unlock")
+            plans = replies[1]
+            if sorted(p["vid"] for p in plans) != sorted(want) or any(
+                    sorted(p.get("rebuilt", [])) != want[p["vid"]]
+                    for p in plans):
+                raise AssertionError(f"{step}: ec.rebuild planned {plans}, "
+                                     f"expected {want}")
+            expect: dict = {}
+            rebuilt_bytes = 0
+            for plan in plans:
+                v, rb = plan["vid"], plan["rebuilder"]
+                for sid in want[v]:
+                    shard = f"{FILER_COLLECTION}_{v}{layout.shard_ext(sid)}"
+                    if sha256_file(os.path.join(cl.vdir(rb), shard)) != \
+                            sha256_file(os.path.join(cl.vdir(victim),
+                                                     shard)):
+                        raise AssertionError(f"{step}: rebuilt {shard} on "
+                                             f"{rb} differs from the lost one")
+                size = os.path.getsize(os.path.join(
+                    cl.vdir(rb), f"{FILER_COLLECTION}_{v}"
+                                 f"{layout.shard_ext(want[v][0])}"))
+                rebuilt_bytes += size * len(want[v])
+                expect[rb] = expect.get(rb, 0) + \
+                    -(-size // encoder.DEFAULT_BATCH_SIZE)
+            no_queue_fallback(step, queue_at_drop)
+            launches[step] = launched(step, expect)
+            _wait_for(lambda: not queue_busy() and all(
+                sum(map(len, ec_shards().get(v, {}).values())) == total
+                for v in vols), "the rebuilt shards to register once each",
+                timeout=60.0)
+            return _step(rebuilt_bytes, wall, volumes=len(plans),
+                         batches=sum(expect.values()),
+                         rebuilders=sorted({name[p["rebuilder"]]
+                                            for p in plans}))
+
         # 9. the rebuild, by whichever comes first: the master's repair
         # queue (its partial chain, once the volume has been degraded
         # for its grace) or `lock` / `ec.rebuild` / `unlock`, which
         # rebuilds what the queue has not
         steps["dropped_to_rebuild_s"] = time.monotonic() - pruned
+        # the queue's grace runs from the master's first scan after the
+        # drop (within a pulse of `pruned`): an ec.rebuild started just
+        # before it runs out overlaps the queue's own rebuild, and the
+        # lost shards then register twice. Not then: wait it out.
+        since_drop = time.monotonic() - pruned
+        if QUEUE_GRACE_S - 15.0 <= since_drop < QUEUE_GRACE_S + 10.0:
+            time.sleep(QUEUE_GRACE_S + 10.0 - since_drop)
+            steps["waited_out_queue_grace"] = True
         _wait_for(lambda: not queue_busy(), "the repair queue to settle",
                   timeout=300.0)
         shards_now = ec_shards()
         by_queue = sorted(v for v, ids in lost.items() if ids and sum(
             map(len, shards_now.get(v, {}).values())) == total)
-        cl.reset_counts()
-        replies, wall = shell("lock", "ec.rebuild", "unlock")
-        plans = replies[1]
-        expect = {}
-        rebuilt_bytes = 0
-        for plan in plans:
-            v = plan["vid"]
-            if sorted(plan.get("rebuilt", [])) != lost[v]:
-                raise AssertionError(f"ec.rebuild {plan}, lost {lost}")
-            rb = plan["rebuilder"]
-            size = os.path.getsize(os.path.join(
-                cl.vdir(rb), f"{FILER_COLLECTION}_{v}"
-                             f"{layout.shard_ext(lost[v][0])}"))
-            rebuilt_bytes += size * len(lost[v])
-            expect[rb] = expect.get(rb, 0) + \
-                -(-size // encoder.DEFAULT_BATCH_SIZE)
-        if sorted(p["vid"] for p in plans) != sorted(
-                v for v, ids in lost.items() if ids and v not in by_queue):
-            raise AssertionError(f"ec.rebuild planned {plans}, the repair "
-                                 f"queue rebuilt {by_queue}")
-        no_queue_fallback("rebuild", queue_at_drop)
-        launches["rebuild"] = launched("rebuild", expect)
-        _wait_for(lambda: not queue_busy() and all(
-            sum(map(len, ec_shards().get(v, {}).values())) == total
-            for v in vols), "the rebuilt shards to register once each",
-            timeout=60.0)
         # what the queue rebuilt: on a server that now holds the lost
         # shards, by the partial chain (no K1 launch: checked step by
-        # step above, a copy + rebuild fails no_queue_fallback)
+        # step, a copy + rebuild fails no_queue_fallback), sha256-equal
+        # to the lost shards
         queued: dict = {}
-        shards_now = ec_shards()
         for v in by_queue:
             rb = next(u for u, ids in shards_now[v].items()
                       if set(lost[v]) <= set(ids))
@@ -3721,14 +4150,43 @@ def filer_phase(work: str, total_mb: int, seed: int,
             if not last.get("mode", "").startswith("partial"):
                 raise AssertionError(f"the repair queue rebuilt {v} on {rb} "
                                      f"by {last}")
-            queued[v] = {"rebuilder": name[rb], **last, "k1_launches": 0}
+            for sid in lost[v]:
+                shard = f"{FILER_COLLECTION}_{v}{layout.shard_ext(sid)}"
+                if sha256_file(os.path.join(cl.vdir(rb), shard)) != \
+                        sha256_file(os.path.join(cl.vdir(victim), shard)):
+                    raise AssertionError(f"the repair queue's {shard} on "
+                                         f"{rb} differs from the lost one")
+            queued[v] = (rb, {"rebuilder": name[rb], **last,
+                              "k1_launches": 0})
+        rest = {v: ids for v, ids in lost.items()
+                if ids and v not in by_queue}
+        if rest:
+            steps["ec_rebuild"] = shell_rebuild("rebuild", rest)
         status = repair_status()
-        steps["ec_rebuild"] = _step(
-            rebuilt_bytes, wall, volumes=len(plans),
-            batches=sum(expect.values()), by_queue=queued, queue={
+        steps["repair_queue"] = {
+            "by_queue": {v: q for v, (_, q) in queued.items()}, **{
                 k: status[k] - queue_at_drop[k] for k in (
                     "repaired_total", "failed_total", "partial_repairs",
-                    "partial_fallbacks", "bytes_moved")})
+                    "partial_fallbacks", "bytes_moved")}}
+        if queued:
+            # 9b. the queue came first, so the operator's route runs on a
+            # fresh loss: the shards it rebuilt unmounted and deleted from
+            # their holder, and at once (well inside the queue's grace)
+            # `lock` / `ec.rebuild` / `unlock` rebuilds them on the card
+            for v, (rb, _) in queued.items():
+                http_json("POST", f"http://{rb}/admin/ec/unmount",
+                          {"volume_id": v, "collection": FILER_COLLECTION,
+                           "shard_ids": lost[v]}, timeout=60)
+                http_json("POST", f"http://{rb}/admin/ec/delete_shards",
+                          {"volume_id": v, "collection": FILER_COLLECTION,
+                           "shard_ids": lost[v]}, timeout=60)
+            _wait_for(lambda: all(
+                not set(lost[v]) & {s for ids in ec_shards().get(v, {})
+                                    .values() for s in ids}
+                for v in queued), "the master to drop the deleted shards",
+                timeout=60.0)
+            steps["ec_rebuild_after_queue"] = shell_rebuild(
+                "rebuild_after_queue", {v: lost[v] for v in queued})
 
         # 10. volume.fsck, fs.du, fs.ls
         cl.reset_counts()
@@ -3744,6 +4202,7 @@ def filer_phase(work: str, total_mb: int, seed: int,
         steps["fsck_ec"] = {"seconds": wall, **{
             k: fsck[k] for k in ("volumes_checked", "entries_referencing",
                                  "missing_count", "orphan_count")}}
+        steps["grpc_listing"] = grpc_listing(filer)
 
         # 11. fs.rm -r of one top directory, then volume.fsck again; the
         # removed files' chunks leave the EC volumes (a delete reads the
@@ -3967,4 +4426,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["volume-child"]:  # a cli-phase server process
         sys.exit(volume_child(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["cli-child"]:  # a cli-phase shell or backup
+        sys.exit(cli_child(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -21,12 +21,17 @@ output, on the port's servers, with two changes for its explicit device:
 port's filer, which takes no device: the card is reached through the
 volume servers that hold the chunks.
 
+``-grpc`` on ``master``, ``volume``, ``server`` and ``filer`` starts the
+process's gRPC plane on its port + 10000, as the reference does;
+``master.follower -grpcAddresses`` feeds the follower's vidMap from the
+masters' KeepConnected stream; ``filer -store etcd`` speaks etcd's gRPC KV
+API.
+
 What needs a plane the port does not have yet raises NotImplementedError
 before any socket is bound, naming the slice of ROADMAP.md queue 1 it
-comes with: ``-grpc`` on any command, ``master.follower -grpcAddresses``
-and ``filer -store etcd`` (the gRPC plane); the wire-protocol filer stores
-(the filer-stores slice); ``filer -ftp``, ``filer -mq``, ``s3``,
-``webdav``, ``ftp``, ``iam``, ``server -s3``, ``mount``, ``fuse``,
+comes with: the other wire-protocol filer stores (the filer-stores
+slice); ``filer -ftp``, ``filer -mq``, ``s3``, ``webdav``, ``ftp``,
+``iam``, ``server -s3``, ``mount``, ``fuse``,
 ``filer.sync``, ``filer.replicate``, ``filer.backup``, ``filer.meta.*``
 and ``filer.remote.*`` (the gateways, mount, replication and remote
 storage). Their parsers stay, so ``-h`` and ``autocomplete`` list the
@@ -41,8 +46,7 @@ import sys
 import time
 
 from seaweedfs_tpu_torch.utils import clockctl
-from seaweedfs_tpu_torch.utils.unported import (GATEWAY_SLICE, GRPC_SLICE,
-                                                not_ported)
+from seaweedfs_tpu_torch.utils.unported import GATEWAY_SLICE, not_ported
 
 CODERS = ["torch", "mxu", "mesh", "cpu", "cpu-mt"]
 
@@ -170,6 +174,7 @@ def _volume_server(args, master_url: str, **kw):
         concurrent_upload_limit_mb=args.concurrentUploadLimitMB,
         concurrent_download_limit_mb=args.concurrentDownloadLimitMB,
         file_size_limit_mb=args.fileSizeLimitMB,
+        grpc_port=args.port + 10000 if args.grpc else None,
         fsync=args.fsync, device=args.device, **kw)
 
 
@@ -181,8 +186,9 @@ def cmd_volume(args):
     vs.start()
     _start_push(args, ("volumeServer", vs))
     tcp = f", tcp {vs.tcp_server.port}" if vs.tcp_server else ""
+    g = f", grpc {vs.grpc_port}" if vs.grpc_port else ""
     _serve_until_signal(vs, ready=f"volume server listening on {vs.url}"
-                        f"{tcp}, master {args.mserver}")
+                        f"{tcp}{g}, master {args.mserver}")
 
 
 def cmd_server(args):
@@ -204,10 +210,13 @@ def cmd_server(args):
         if args.filer:
             from seaweedfs_tpu_torch.server.filer_server import FilerServer
             fs = FilerServer(ms.url, host=args.ip, port=args.filerPort,
-                             store_dir=args.dir.split(",")[0])
+                             store_dir=args.dir.split(",")[0],
+                             grpc_port=(args.filerPort + 10000
+                                        if args.grpc else None))
             fs.start()
             started.append(fs)
-            ready += f"; filer {fs.url}"
+            ready += f"; filer {fs.url}" + (
+                f" (grpc {fs.grpc_port})" if args.grpc else "")
             push_targets.append(("filer", fs))
     except BaseException:
         for srv in reversed(started):
@@ -231,11 +240,14 @@ def cmd_filer(args):
                      store=args.store, store_dir=args.dir,
                      default_replication=args.defaultReplication,
                      cipher=args.encryptVolumeData,
+                     grpc_port=args.port + 10000 if args.grpc else None,
                      sharding=args.sharding,
                      entry_cache=not args.noEntryCache)
     fs.start()
     _start_push(args, ("filer", fs))
     extra = " cipher" if args.encryptVolumeData else ""
+    if fs.grpc_port:
+        extra += f", grpc {fs.grpc_port}"
     _serve_until_signal(fs, ready=f"filer {fs.url} (store={args.store})"
                         f"{extra}")
 
@@ -271,17 +283,16 @@ def cmd_version(args):
 
 def cmd_master_follower(args):
     """Read-only follower master (reference command/master_follower.go):
-    serves lookups from a TTL'd pull cache of the masters' HTTP plane
-    (the reference's push-fed vidMap, -grpcAddresses, needs the gRPC
-    plane) and answers writes 409 with a leader hint so clients
+    serves lookups from a vidMap — push-fed over the masters' gRPC
+    KeepConnected stream when -grpcAddresses is given, else a TTL'd
+    pull cache — and answers writes 409 with a leader hint so clients
     redirect."""
     from seaweedfs_tpu_torch.client.wdclient import MasterClient
     from seaweedfs_tpu_torch.utils.httpd import (HttpError, HttpServer,
                                                  Response, http_json)
-    if args.grpcAddresses:
-        _not_ported("master.follower -grpcAddresses (the push-fed "
-                    "vidMap)", GRPC_SLICE)(args)
-    mc = MasterClient(args.masters.split(","))
+    mc = MasterClient(args.masters.split(","),
+                      grpc_address=(args.grpcAddresses.split(",")
+                                    if args.grpcAddresses else None))
     srv = HttpServer(args.ip, args.port)
 
     def lookup(req):
@@ -646,8 +657,7 @@ def main(argv=None):
     m.add_argument("-defaultReplication", default="000")
     m.add_argument("-mdir", default="", help="state persistence dir")
     m.add_argument("-grpc", action="store_true",
-                   help="also serve the gRPC plane on port+10000 "
-                        "(not ported)")
+                   help="also serve the gRPC plane on port+10000")
     m.add_argument("-peers", default="",
                    help="comma-separated master group urls (raft HA)")
     m.add_argument("-repairRateMBps", type=float, default=0.0,
@@ -917,8 +927,6 @@ def main(argv=None):
 
     args = p.parse_args(argv)
     args._subcommands = list(sub.choices)
-    if getattr(args, "grpc", False):
-        _not_ported(f"{args.cmd} -grpc", GRPC_SLICE)(args)
     from seaweedfs_tpu_torch.utils import glog
     glog.set_verbosity(args.verbosity)
     if args.vmodule:

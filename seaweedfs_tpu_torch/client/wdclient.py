@@ -1,13 +1,17 @@
 """Client-side master access: vid -> locations cache + lookup fallback.
 
-Functional equivalent of reference weed/wdclient/masterclient.go in its
-pull mode: a TTL'd lookup cache over the master's HTTP plane.
+Functional equivalent of reference weed/wdclient/masterclient.go. Two
+modes, matching the reference's design:
 
-The port's copy of seaweedfs_tpu/client/wdclient.py, the same code but for
-the push mode: the reference's ``grpc_address`` starts a KeepConnected
-stream (masterclient.go:148-240) over the master's gRPC plane, which is
-not ported, so here it raises NotImplementedError. It imports nothing of
-that package.
+- push mode (``grpc_address`` given): a background KeepConnected stream
+  feeds a vidMap from VolumeLocation deltas — the reference's
+  ``KeepConnectedToMaster`` loop (masterclient.go:148-240); lookups hit
+  the map first and fall back to a LookupVolume call for unknown vids
+  (``LookupFileIdWithFallback``).
+- pull mode: TTL'd lookup cache over the HTTP plane.
+
+The port's copy of seaweedfs_tpu/client/wdclient.py. It takes no device
+and imports nothing of that package.
 """
 
 from __future__ import annotations
@@ -32,14 +36,7 @@ class MasterClient:
         master-granted fid-range leases; see /admin/lease_assign),
         falling back to the master's /dir/assign when no leased holder
         answers. Off = every assign is a master round trip, kept as
-        the comparator (assign_leases=False).
-
-        grpc_address (the reference's push mode) is not ported and
-        raises NotImplementedError."""
-        if grpc_address:
-            raise NotImplementedError(
-                "the master's gRPC plane (server/master_grpc.py) is not "
-                "ported yet: MasterClient takes HTTP master urls only")
+        the comparator (assign_leases=False)."""
         if isinstance(master_urls, str):
             master_urls = [master_urls]
         self.master_urls = master_urls
@@ -77,10 +74,104 @@ class MasterClient:
         # for needles some replica advertised as cache-hot (bounded LRU)
         self._affinity: OrderedDict = OrderedDict()
         self._lock = threading.Lock()
+        # push-mode state
+        self._vidmap: dict[int, list[dict]] = {}
+        self._vidmap_ready = threading.Event()
+        self._stop = threading.Event()
+        self._kc_thread: Optional[threading.Thread] = None
+        self._kc_stream = None
+        if grpc_address:
+            addrs = ([grpc_address] if isinstance(grpc_address, str)
+                     else list(grpc_address))
+            self._kc_thread = threading.Thread(
+                target=self._keep_connected_loop,
+                args=(addrs, client_type, client_address), daemon=True,
+                name="grpc-keepalive")
+            self._kc_thread.start()
+
+    # ---- KeepConnected push stream ----
+    def _keep_connected_loop(self, addresses: list[str], client_type: str,
+                             client_address: str) -> None:
+        from seaweedfs_tpu_torch.server.master_grpc import GrpcMasterClient
+        failures = 0
+        idx = 0
+        while not self._stop.is_set():
+            address = addresses[idx % len(addresses)]
+            client = GrpcMasterClient(address)
+            got_data = False
+            try:
+                stream = client.keep_connected(client_type, client_address)
+                self._kc_stream = stream
+                for resp in stream:
+                    if self._stop.is_set():
+                        stream.cancel()
+                        break
+                    if resp.HasField("volume_location"):
+                        vl = resp.volume_location
+                        if not vl.url and vl.leader:
+                            # follower redirect: note the hint and rotate
+                            with self._lock:
+                                self._leader = vl.leader
+                                if vl.leader not in self.master_urls:
+                                    self.master_urls.append(vl.leader)
+                            continue
+                        if not got_data:
+                            # working stream established: the incoming
+                            # snapshot supersedes the old map — deletions
+                            # missed while disconnected must not linger.
+                            # (Cleared only now, so a dead master doesn't
+                            # wipe a still-useful map.)
+                            with self._lock:
+                                self._vidmap.clear()
+                        got_data = True
+                        failures = 0
+                        self._apply_volume_location(vl)
+            except Exception:
+                pass
+            finally:
+                self._kc_stream = None
+                client.close()
+            if not self._stop.is_set():
+                self._vidmap_ready.clear()
+                if not got_data:
+                    # dead or follower master: try the next address
+                    idx += 1
+                    failures += 1
+                # FULL-JITTER backoff, uniform(0, min(cap, base*2^n)):
+                # the old fixed 0.2*2^n doubling resynchronized every
+                # disconnected client onto the same retry instants
+                # after a master restart (thundering herd)
+                clockctl.sleep(self.retry.backoff(failures))
+
+    def _apply_volume_location(self, vl) -> None:
+        loc = {"url": vl.url, "publicUrl": vl.public_url or vl.url}
+        with self._lock:
+            for vid in list(vl.new_vids) + list(vl.new_ec_vids):
+                locs = self._vidmap.setdefault(vid, [])
+                if not any(l["url"] == loc["url"] for l in locs):
+                    locs.append(dict(loc))
+            for vid in list(vl.deleted_vids) + list(vl.deleted_ec_vids):
+                locs = self._vidmap.get(vid)
+                if locs is not None:
+                    locs[:] = [l for l in locs if l["url"] != loc["url"]]
+                    if not locs:
+                        del self._vidmap[vid]
+            if vl.leader:
+                hint = vl.leader
+                if hint and hint not in self.master_urls:
+                    self.master_urls.append(hint)
+        self._vidmap_ready.set()
 
     def stop(self) -> None:
-        """Nothing runs in the background in pull mode; callers still
-        stop a client when they are done with it."""
+        self._stop.set()
+        stream = self._kc_stream
+        if stream is not None:
+            try:
+                stream.cancel()
+            except Exception:
+                pass
+        if self._kc_thread is not None:
+            self._kc_thread.join(timeout=2)
 
     @property
     def leader(self) -> str:
@@ -216,6 +307,11 @@ class MasterClient:
                 ev.set()
 
     def lookup_volume(self, vid: int, collection: str = "") -> list[dict]:
+        with self._lock:
+            # push-fed vidMap first (LookupFileIdWithFallback)
+            locs = self._vidmap.get(vid)
+            if locs:
+                return list(locs)
         return self._lookup_singleflight(
             self._cache, vid, "vol",
             lambda: self._call(

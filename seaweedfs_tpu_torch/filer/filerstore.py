@@ -10,10 +10,10 @@ elastic_store.py REST). New stores implement the same five entry ops +
 kv + listing.
 
 The port's copy of seaweedfs_tpu/filer/filerstore.py. The embedded stores
-(memory, sqlite, lsm) work; the wire-protocol stores and the remote-filer
-adapter are not ported yet, and ``make_store`` raises NotImplementedError
-for them naming their slice (etcd: the gRPC slice). It imports nothing of
-that package.
+(memory, sqlite, lsm) and etcd (etcd_store.py, gRPC) work; the other
+wire-protocol stores and the remote-filer adapter are not ported yet, and
+``make_store`` raises NotImplementedError for them naming their slice. It
+imports nothing of that package.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from typing import Optional
 
 from seaweedfs_tpu_torch.filer.entry import Entry
 from seaweedfs_tpu_torch.utils.unported import (
-    FILER_STORES_SLICE, GRPC_SLICE, not_ported)
+    FILER_STORES_SLICE, not_ported)
 
 
 class FilerStore(abc.ABC):
@@ -165,15 +165,15 @@ def _unported(name: str, slice_: str):
 
 # The store registry — the analogue of the reference's blank-import
 # plugin table (weed/command/imports.go:17-36): the embedded stores
-# (memory, sqlite, lsm); the wire-protocol families (redis RESP2, etcd
-# gRPC, mysql, postgres, mongodb OP_MSG, cassandra CQL, elasticsearch
-# REST) and the remote-filer adapter of gateway mode come with later
-# slices.
+# (memory, sqlite, lsm) and etcd (gRPC); the other wire-protocol families
+# (redis RESP2, mysql, postgres, mongodb OP_MSG, cassandra CQL,
+# elasticsearch REST) and the remote-filer adapter of gateway mode come
+# with later slices.
 STORES = {
     "memory": MemoryStore,
     "sqlite": _lazy("seaweedfs_tpu_torch.filer.abstract_sql", "SqliteStore"),
     "lsm": _lazy("seaweedfs_tpu_torch.filer.lsm_store", "LsmStore"),
-    "etcd": _unported("etcd", GRPC_SLICE),
+    "etcd": _lazy("seaweedfs_tpu_torch.filer.etcd_store", "EtcdFilerStore"),
     **{name: _unported(name, FILER_STORES_SLICE)
        for name in ("redis", "mysql", "postgres", "mongodb", "cassandra",
                     "elastic", "remote")},

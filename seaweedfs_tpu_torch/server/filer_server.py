@@ -14,10 +14,11 @@ Functional equivalent of reference weed/server/filer_server*.go:
 The port's copy of seaweedfs_tpu/server/filer_server.py: every route, on
 the port's filer, client and HTTP core. It takes no device: the card is
 reached through the volume servers that hold the chunks. What the port
-does not have yet raises NotImplementedError naming its slice: a
-``grpc_port`` (in the constructor, before anything is bound), the
+does not have yet raises NotImplementedError naming its slice: the
 wire-protocol and remote-filer stores (``make_store``), and the cloud
-remote clients, which the ``/__api/remote/*`` routes answer as 501. One
+remote clients, which the ``/__api/remote/*`` routes answer as 501.
+``grpc_port`` starts the filer_pb gRPC plane (server/filer_grpc.py) but
+for its S3 ``Configure`` service, which comes with the gateway slice. One
 difference on purpose: chunk GC is one worker draining a queue, which
 retries a shed or failed delete with backoff (``GC_ATTEMPTS``) and counts
 every outcome in ``chunk_gc_total`` (``abandoned``: a chunk left behind),
@@ -59,7 +60,6 @@ from seaweedfs_tpu_torch.utils.httpd import (
     parse_byte_range)
 from seaweedfs_tpu_torch.utils.resilience import (
     Deadline, PeerHealth, current_deadline, deadline_scope, hedged)
-from seaweedfs_tpu_torch.utils.unported import GRPC_SLICE, not_ported
 
 CHUNK_SIZE = 4 * 1024 * 1024
 INLINE_LIMIT = 2048  # small content stored in the entry itself
@@ -138,9 +138,6 @@ class FilerServer:
         # keep flowing through a master leader outage while volume
         # servers hold valid leases. False = every assign round-trips
         # the master, the comparator.
-        if grpc_port is not None:
-            raise not_ported("the filer's gRPC plane (grpc_port, -grpc)",
-                             GRPC_SLICE)
         self.cipher = cipher
         # announce=False: gateway mode (remote metadata store) — don't
         # register as a filer or aggregate peers
@@ -148,6 +145,8 @@ class FilerServer:
         # announce cadence doubles as the rebalance-telemetry cadence;
         # callers shorten it to speed planner convergence
         self.announce_interval_s = 15.0
+        self._grpc_port_arg = grpc_port
+        self._grpc_server = None
         self.grpc_port: Optional[int] = None
         self.master_url = master_url
         self.assign_leases = assign_leases
@@ -315,6 +314,10 @@ class FilerServer:
         self.tracer.node = f"filer@{self.http.host}:{self.http.port}"
         glog.info("filer server up at %s (store=%s, metrics=%s)",
                   self.url, self.filer.store.name, self.metrics_url)
+        if self._grpc_port_arg is not None:
+            from seaweedfs_tpu_torch.server.filer_grpc import start_filer_grpc
+            self._grpc_server, self.grpc_port = start_filer_grpc(
+                self, self.http.host, self._grpc_port_arg)
         # external event publishing when notification.toml enables a
         # backend (reference filer.go NotifyUpdateEvent)
         from seaweedfs_tpu_torch.notification.queue import (attach_to_filer,
@@ -677,6 +680,8 @@ class FilerServer:
             self._announce_stop.set()
         if hasattr(self, "meta_aggregator"):
             self.meta_aggregator.stop()
+        if self._grpc_server is not None:
+            self._grpc_server.stop(0).wait()
         self.http.stop()
         self.metrics_http.stop()
         self.metrics.stop_push()

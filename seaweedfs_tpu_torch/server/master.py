@@ -23,11 +23,10 @@ locally from their range; the master only re-enters the per-PUT path
 when no leased holder is reachable.
 
 The port's copy of seaweedfs_tpu/server/master.py, the same code, Raft HA
-(``set_peers``, cluster/raft.py) included, but for the gRPC plane
-(server/master_grpc.py): ``grpc_port`` raises NotImplementedError in the
-constructor, before a socket is bound. Like the reference's master it
-takes no device: repairs run on the volume servers, whose coder is the
-card's. It imports nothing of that package.
+(``set_peers``, cluster/raft.py) and the gRPC plane
+(server/master_grpc.py, started by ``grpc_port``) included. Like the
+reference's master it takes no device: repairs run on the volume servers,
+whose coder is the card's. It imports nothing of that package.
 """
 
 from __future__ import annotations
@@ -84,10 +83,6 @@ class MasterServer:
                  trace_sample: float = 0.01,
                  profile_hz: float = profiler.DEFAULT_HZ,
                  tier_endpoint: str = "", tier_bucket: str = "tier"):
-        if grpc_port is not None:
-            raise NotImplementedError(
-                "the master's gRPC plane (server/master_grpc.py) is not "
-                "ported yet (ROADMAP.md queue 1)")
         self.topo = Topology(volume_size_limit=volume_size_limit_mb * 1024 * 1024)
         self.jwt_signing_key = jwt_signing_key
         from seaweedfs_tpu_torch.utils.metrics import Registry
@@ -190,6 +185,7 @@ class MasterServer:
         # through raft snapshots, topology/cluster_commands.go) ----
         self.meta_dir = meta_dir
         self._load_state()
+        self._grpc_port = grpc_port
         self._cluster_nodes: dict = {}
         # (type, url) -> {"metrics_url": ...}; separate from the
         # liveness map above because the gRPC plane also writes that
@@ -216,6 +212,7 @@ class MasterServer:
         self.tier_mover = TierMover(self.tiering, endpoint=tier_endpoint,
                                     bucket=tier_bucket)
         self.tiering_dispatched: list[dict] = []
+        self._grpc_server = None
         self.grpc_port: Optional[int] = None
 
     # ---- lifecycle ----
@@ -223,6 +220,10 @@ class MasterServer:
         self.http.start()
         self.sampler.start()
         self.tracer.node = f"master@{self.http.host}:{self.http.port}"
+        if self._grpc_port is not None:
+            from seaweedfs_tpu_torch.server.master_grpc import start_master_grpc
+            self._grpc_server, self.grpc_port = start_master_grpc(
+                self, self.http.host, self._grpc_port)
         self._pruner = threading.Thread(target=self._prune_loop, daemon=True,
                                         name="master-prune")
         self._pruner.start()
@@ -237,6 +238,8 @@ class MasterServer:
         self._save_state()
         if self.raft is not None:
             self.raft.stop()
+        if self._grpc_server is not None:
+            self._grpc_server.stop(0)
         self.http.stop()
 
     @property

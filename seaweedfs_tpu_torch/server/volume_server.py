@@ -11,9 +11,12 @@ Differences from the JAX package, on purpose:
     scheduler; the constructor raises without a CUDA device unless the
     caller passes ``device="cpu"`` (the plain PyTorch versions, as the
     tests run them). The JAX server's store defaults to the host coder.
-  - the gRPC admin plane (``grpc_port``) is not ported and raises
-    NotImplementedError; so do the cloud-tier moves, which the
-    /admin/tier* endpoints answer with the volume's error (409).
+  - the cloud-tier moves are not ported and raise NotImplementedError,
+    which the /admin/tier* endpoints answer with the volume's error (409).
+
+``grpc_port`` starts the volume_server_pb gRPC admin plane
+(server/volume_grpc.py) beside the HTTP one; its EC RPCs run the same
+handler bodies, so they reach the card through the same coder.
 
 Public data path:
 
@@ -122,9 +125,8 @@ class VolumeServer:
                  profile_hz: float = profiler.DEFAULT_HZ,
                  device="cuda"):
         """tcp_port >= 0 enables the raw TCP data path (0 = ephemeral;
-        reference volume_server_tcp_handlers_write.go). grpc_port would start
-        the volume_server_pb gRPC admin plane; it is not ported, and any
-        value but None raises NotImplementedError.
+        reference volume_server_tcp_handlers_write.go). grpc_port starts
+        the volume_server_pb gRPC admin plane (0 = ephemeral).
 
         concurrent_upload/download_limit_mb cap the total request/
         response payload bytes in flight at once; excess writers wait up
@@ -210,10 +212,6 @@ class VolumeServer:
                 f"no CUDA device for the volume server's coder "
                 f"({self.device}); pass device='cpu' to run the plain "
                 "versions on the host")
-        if grpc_port is not None:
-            raise NotImplementedError(
-                "the volume server's gRPC plane (server/volume_grpc.py) is "
-                "not ported yet (ROADMAP.md queue 1 item 6)")
         urls = (master_url.split(",") if isinstance(master_url, str)
                 else list(master_url))
         self.master_urls = [u.strip() for u in urls if u.strip()]
@@ -231,7 +229,9 @@ class VolumeServer:
         self._needle_map_kind = needle_map_kind
         self._tcp_port = tcp_port
         self.tcp_server = None
-        self.grpc_port: Optional[int] = None  # the gRPC plane is not ported
+        self._grpc_port_arg = grpc_port
+        self._grpc_server = None
+        self.grpc_port: Optional[int] = None
         self._public_url = public_url
         self.store: Optional[Store] = None
         self.needle_cache = None  # NeedleCache, attached in start()
@@ -430,6 +430,10 @@ class VolumeServer:
             self.tcp_server = TcpDataServer(self.store, self.http.host,
                                             self._tcp_port)
             self.tcp_server.start()
+        if self._grpc_port_arg is not None:
+            from seaweedfs_tpu_torch.server.volume_grpc import start_volume_grpc
+            self._grpc_server, self.grpc_port = start_volume_grpc(
+                self, self.http.host, self._grpc_port_arg)
         self._register_routes()
         self.heartbeat_once()
         self._hb_thread = threading.Thread(target=self._heartbeat_loop,
@@ -490,6 +494,10 @@ class VolumeServer:
         self.metrics.stop_push()
         if self.tcp_server is not None:
             self.tcp_server.stop()
+        if self._grpc_server is not None:
+            # every RPC has ended before the volumes close: a CopyFile
+            # stream must not read a closed file
+            self._grpc_server.stop(0).wait()
         self.http.stop()
         if self.ec_batcher is not None:
             self.ec_batcher.stop()

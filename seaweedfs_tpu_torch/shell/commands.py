@@ -6,16 +6,17 @@ command_ec_balance.go, command_ec_decode.go, command_volume_fix_replication.go):
 planning is delegated to shell/ec_plan.py pure functions; this module owns
 the RPC choreography.
 
-The port's copy of seaweedfs_tpu/shell/commands.py, the same code but for
-the volume servers' gRPC admin plane (server/volume_grpc.py), which the
-port does not have yet: the shell drives every volume server over HTTP,
-as the reference's does when its probe finds no gRPC port, so
-``volume.tail`` (gRPC only) raises as it does there. Its ec.rebuild,
-ec.balance and ec.decode requests name the volume's collection, from the
-master's EC shard map (the reference's shell sends it; seaweedfs_tpu's
-sends none), so the volume servers open ``<collection>_<vid>.*``. It
-takes no device: EC work runs on the volume servers. It imports nothing
-of that package.
+The port's copy of seaweedfs_tpu/shell/commands.py. Like the reference's
+shell it is gRPC-first: each volume server's gRPC admin plane
+(server/volume_grpc.py) is probed once, and a node without one, an RPC
+that is not mapped, or a plane that went UNAVAILABLE takes HTTP. Unlike
+the reference's probe, a node whose heartbeat advertises grpc_port 0 is
+not dialled at all. Its
+ec.rebuild, ec.balance and ec.decode requests name the volume's
+collection, from the master's EC shard map (the reference's shell sends
+it; seaweedfs_tpu's sends none), so the volume servers open
+``<collection>_<vid>.*``. It takes no device: EC work runs on the volume
+servers. It imports nothing of that package.
 """
 
 from __future__ import annotations
@@ -32,9 +33,11 @@ class ShellContext:
     def __init__(self, master_url: str, use_grpc: bool = True):
         self.master_url = master_url
         self.cwd = "/"  # fs.cd state; relative fs.* paths resolve here
-        # the reference probes each node's gRPC admin plane first; the
-        # port has none, so use_grpc is accepted and every call is HTTP
+        # volume-server gRPC admin plane: probed per node (port+10000
+        # convention, like the master), HTTP fallback kept — the
+        # reference's shell is gRPC-first the same way
         self.use_grpc = use_grpc
+        self._grpc_clients: dict = {}
 
     # ---- helpers ----
     def topology(self) -> dict:
@@ -52,11 +55,55 @@ class ShellContext:
                 for e in n.get("ec_shards", []) if e.get("collection")}
 
     def _grpc_client(self, node: str):
-        """The node's gRPC admin client: None, the volume servers' gRPC
-        plane is not ported (no probe is made)."""
-        return None
+        """GrpcVolumeClient for node 'ip:port', or None (probed once). A
+        node whose heartbeat advertises grpc_port 0 serves no plane and is
+        not dialled."""
+        if node in self._grpc_clients:
+            return self._grpc_clients[node]
+        client = None
+        try:
+            from seaweedfs_tpu_torch.cluster.topology import find_node_info
+            ip, port = node.rsplit(":", 1)
+            # the node advertises its gRPC port in heartbeats; where the
+            # master names none, the reference's port+10000 convention
+            info = find_node_info(self.topology(), node) or {}
+            gport = info.get("grpc_port")
+            if gport == 0:
+                raise LookupError(f"{node} serves no gRPC plane")
+            import grpc as _grpc
+
+            from seaweedfs_tpu_torch.server.volume_grpc import GrpcVolumeClient
+            from seaweedfs_tpu_torch.utils.tls import make_channel
+            addr = f"{ip}:{gport or int(port) + 10000}"
+            ch = make_channel(addr)  # honors security.toml mTLS
+            _grpc.channel_ready_future(ch).result(timeout=0.5)
+            ch.close()
+            client = GrpcVolumeClient(addr)
+        except Exception:
+            client = None
+        self._grpc_clients[node] = client
+        return client
 
     def _vs(self, node: str, path: str, body: dict, timeout: float = 300):
+        if self.use_grpc:
+            client = self._grpc_client(node)
+            if client is not None:
+                import grpc as _grpc
+                try:
+                    return client.call(path, body, timeout=timeout)
+                except KeyError:
+                    pass  # RPC not mapped -> HTTP
+                except _grpc.RpcError as e:
+                    code = e.code()
+                    if code == _grpc.StatusCode.UNAVAILABLE:
+                        self._grpc_clients[node] = None  # node plane gone
+                    else:
+                        status = {
+                            _grpc.StatusCode.NOT_FOUND: 404,
+                            _grpc.StatusCode.INVALID_ARGUMENT: 400,
+                        }.get(code, 500)
+                        raise HttpError(
+                            status, (e.details() or "").encode()) from e
         return http_json("POST", f"http://{node}{path}", body,
                          timeout=timeout)
 

@@ -4,13 +4,9 @@ Functional equivalents of reference weed/command/fix.go (rebuild .idx by
 scanning .dat), export.go (dump needles to files), backup.go (copy a
 volume from a live server), compact.go (offline vacuum).
 
-The port's copy of seaweedfs_tpu/storage/maintenance.py, the same code but
-for the incremental backup: it tails the source over the volume server's
-gRPC plane (server/volume_grpc.py), which the port does not have yet. The
-port's servers advertise no gRPC port, so ``backup_volume`` takes the full
-HTTP copy; against a server that does, a later run raises
-NotImplementedError (``_backup_incremental``) instead of copying in full.
-It takes no device and imports nothing of that package.
+The port's copy of seaweedfs_tpu/storage/maintenance.py, the incremental
+backup over the volume server's gRPC tail plane (server/volume_grpc.py)
+included. It takes no device and imports nothing of that package.
 """
 
 from __future__ import annotations
@@ -160,8 +156,6 @@ def backup_volume(master_url: str, vid: int, out_dir: str,
             try:
                 return _backup_incremental(out_dir, collection, vid,
                                            base, url, gport)
-            except NotImplementedError:
-                raise  # not a failed tail: the plane is not ported
             except Exception:
                 pass  # fall through to a full copy
 
@@ -193,13 +187,60 @@ def _grpc_port_for(master_url: str, node_url: str) -> int:
 def _backup_incremental(out_dir: str, collection: str, vid: int,
                         base: str, node_url: str, gport: int) -> str:
     """Open the local copy as a volume and replay the source's tail
-    (appends + deletes) since the local last-append timestamp: it reads
-    the source's tail over the volume server's gRPC plane, which is not
-    ported."""
-    raise NotImplementedError(
-        "the incremental backup tails the volume server's gRPC plane "
-        "(server/volume_grpc.py, the gRPC slice of ROADMAP.md queue 1), "
-        "which is not ported yet")
+    (appends + deletes) since the local last-append timestamp."""
+    from seaweedfs_tpu_torch.server.volume_grpc import GrpcVolumeClient
+    from seaweedfs_tpu_torch.storage.volume import Volume
+    host = node_url.rsplit(":", 1)[0]
+    v = Volume(out_dir, collection, vid)
+    try:
+        client = GrpcVolumeClient(f"{host}:{gport}")
+        try:
+            # a source-side vacuum rewrote history (deletes absorbed
+            # into the compacted file would never reach the tail) —
+            # revision mismatch forces a full re-copy, like the
+            # reference's CompactRevision check (command/backup.go)
+            st = client.read_volume_file_status(vid)
+            if st.compaction_revision != \
+                    v.super_block.compaction_revision:
+                raise RuntimeError("compaction revision changed")
+            since = _last_local_append_ns(v, base)
+            for n in client.volume_tail_needles(vid, since_ns=since):
+                if n.size == 0 and not n.data:
+                    v.delete_needle(n.id)
+                else:
+                    v.write_needle(n)
+        finally:
+            client.close()
+    finally:
+        v.close()
+    return base
+
+
+def _last_local_append_ns(v, base: str) -> int:
+    """append_at_ns of the newest LIVE record in the local copy: walk
+    the .idx backwards past tombstones to the last addressable needle
+    (replaying a hair too much is harmless — the records are
+    idempotent)."""
+    esize = t.entry_size(v.offset_bytes)
+    try:
+        size = os.path.getsize(base + ".idx")
+    except OSError:
+        return 0
+    with open(base + ".idx", "rb") as f:
+        pos = size - esize
+        while pos >= 0:
+            f.seek(pos)
+            key, off, sz = t.unpack_entry(f.read(esize), 0,
+                                          v.offset_bytes)
+            if off != 0 and t.size_is_valid(sz):
+                try:
+                    return v.read_needle(key).append_at_ns
+                except Exception:
+                    # the needle behind this stale idx entry was later
+                    # deleted (or is unreadable) — keep walking back
+                    pass
+            pos -= esize
+    return 0
 
 
 def compact_volume(base_path: str) -> tuple[int, int]:

@@ -10,9 +10,9 @@ compaction revision. The files are byte-identical to the JAX package's
 for the same sequence of writes, deletes and compactions.
 
 Not ported: the cloud tier (tier_to / untier and volumes whose .dat lives
-on a remote tier). They need the S3 backend and utils/httpd.py, which come
-with the volume server (ROADMAP.md queue 1 item 6); until then they raise
-NotImplementedError.
+on a remote tier). They need the S3 backend (storage/backend.py), which
+comes with the cloud-tier slice of ROADMAP.md queue 1; until then they
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from seaweedfs_tpu_torch.storage.needle import (CURRENT_VERSION, Needle,
 from seaweedfs_tpu_torch.storage.needle_map import CompactMap
 from seaweedfs_tpu_torch.storage import idx as idxmod
 from seaweedfs_tpu_torch.storage.super_block import ReplicaPlacement, SuperBlock, TTL
+from seaweedfs_tpu_torch.utils.unported import CLOUD_TIER_SLICE, not_ported
 
 
 class NotFoundError(Exception):
@@ -134,9 +135,9 @@ class Volume:
         if not os.path.exists(base + ".dat"):
             # cloud-tiered: the .dat lives on a remote tier recorded in
             # the .vif sidecar (reference volume_tier.go LoadedVolume)
-            raise NotImplementedError(
+            raise not_ported(
                 f"volume {self.id} is cloud-tiered: reading it needs the S3 "
-                "backend, not ported yet (ROADMAP.md queue 1 item 6)")
+                "backend, which", CLOUD_TIER_SLICE)
         self._dat = open(base + ".dat", "r+b")
         self._dat.seek(0)
         head = self._dat.read(super_block_probe_len())
@@ -421,17 +422,15 @@ class Volume:
                 key: Optional[str] = None) -> dict:
         """Seal and move the .dat to an S3-compatible tier (the JAX
         package's Volume.tier_to). Not ported: it needs the S3 backend
-        and utils/httpd.py (ROADMAP.md queue 1 item 6)."""
-        raise NotImplementedError(
-            "Volume.tier_to needs the S3 backend, not ported yet "
-            "(ROADMAP.md queue 1 item 6)")
+        of the cloud-tier slice."""
+        raise not_ported("Volume.tier_to needs the S3 backend, which",
+                         CLOUD_TIER_SLICE)
 
     def untier(self) -> None:
         """Pull a tiered .dat back (the JAX package's Volume.untier).
         Not ported, like tier_to."""
-        raise NotImplementedError(
-            "Volume.untier needs the S3 backend, not ported yet "
-            "(ROADMAP.md queue 1 item 6)")
+        raise not_ported("Volume.untier needs the S3 backend, which",
+                         CLOUD_TIER_SLICE)
 
     def file_count(self) -> int:
         return len(self.nm)

@@ -3,13 +3,17 @@
 What needs one of them raises NotImplementedError where it is reached,
 before any socket is bound, and names the slice it comes with. Nothing of
 the port quietly does less in its place.
+
+Where nothing of the port is reached, the error comes from elsewhere: the
+filer's gRPC plane serves no S3 ``Configure`` service (it needs
+gateway/iam_server.py and pb/{s3,iam}_pb2.py of the gateway slice), so a
+call to it gets ``UNIMPLEMENTED`` from gRPC itself.
 """
 
 from __future__ import annotations
 
-GRPC_SLICE = ("the gRPC slice of ROADMAP.md queue 1 (pb/, "
-              "server/{master,volume,filer}_grpc.py, utils/tls.py, "
-              "filer/etcd_store.py)")
+CLOUD_TIER_SLICE = ("the cloud-tier slice of ROADMAP.md queue 1 "
+                    "(storage/backend.py)")
 FILER_STORES_SLICE = ("the filer-stores slice of ROADMAP.md queue 1 "
                       "(filer/{redis,mysql,postgres,mongodb,cassandra,"
                       "elastic,remote}_store.py)")

@@ -46,6 +46,7 @@ from seaweedfs_tpu_torch.storage import maintenance
 from seaweedfs_tpu_torch.storage.erasure_coding import layout
 from seaweedfs_tpu_torch.utils import glog
 from seaweedfs_tpu_torch.utils.httpd import http_call, http_json
+from torch_ports import free_grpc_ports
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOTAL = layout.TOTAL_SHARDS_COUNT
@@ -167,13 +168,8 @@ def test_same_subcommands_as_jax(capsys):
 
 
 @pytest.mark.parametrize("argv,slice_", [
-    (["master", "-grpc"], "gRPC"),
-    (["volume", "-grpc", "-device", "cpu"], "gRPC"),
-    (["server", "-grpc", "-device", "cpu"], "gRPC"),
-    (["master.follower", "-grpcAddresses", "127.0.0.1:19333"], "gRPC"),
-    (["filer", "-grpc"], "gRPC"),
     (["filer", "-store", "redis"], "filer-stores"),
-    (["filer", "-store", "etcd"], "gRPC"),
+    (["filer", "-store", "mongodb"], "filer-stores"),
     (["filer.meta.tail"], "gateway"),
     (["filer", "-mq"], "gateway"),
     (["s3"], "gateway"), (["webdav"], "gateway"), (["ftp"], "gateway"),
@@ -196,6 +192,129 @@ def test_what_is_not_ported_raises_before_binding(argv, slice_, monkeypatch):
     with pytest.raises(NotImplementedError, match=slice_):
         cli.main(argv)
     assert bound == []
+
+
+def _follower_answers(url, vid, want, timeout=20.0):
+    def answered():
+        try:
+            status, body, _ = http_call(
+                "GET", f"http://{url}/dir/lookup?volumeId={vid}", timeout=2)
+        except ConnectionError:
+            return False
+        return status == 200 and [
+            loc["url"] for loc in json.loads(body)["locations"]] == want
+    _wait(answered, "the follower to answer from its vidMap", timeout)
+
+
+@pytest.mark.parametrize("argv", [
+    ["master", "-grpc"], ["volume", "-grpc", "-device", "cpu"],
+    ["server", "-grpc", "-device", "cpu"],
+    ["master.follower", "-grpcAddresses"], ["filer", "-grpc"],
+    ["filer", "-store", "etcd"]])
+def test_grpc_flags_serve_the_grpc_plane(argv, stacks, monkeypatch,
+                                         tmp_path):
+    """What needed the gRPC plane works: `-grpc` serves each process's
+    plane on its port + 10000 (and the volume server advertises it in its
+    heartbeat), `master.follower -grpcAddresses` answers lookups from the
+    vidMap the masters' KeepConnected stream pushes (its -masters an
+    address where nothing listens), and `filer -store etcd` keeps its
+    entries in etcd."""
+    from seaweedfs_tpu_torch.filer.etcd_store import MiniEtcdServer
+    from seaweedfs_tpu_torch.server.filer_grpc import GrpcFilerClient
+    from seaweedfs_tpu_torch.server.master_grpc import GrpcMasterClient
+    from seaweedfs_tpu_torch.server.volume_grpc import GrpcVolumeClient
+    from seaweedfs_tpu_torch.utils import httpd
+    s = stacks(PORT, "grpc")
+    port, port2 = free_grpc_ports(2)
+    cmd = argv[0]
+    if cmd == "master":
+        cli.main(["master", "-port", str(port), "-grpc"])
+        m = s.servers[-1]
+        assert m.grpc_port == port + 10000
+        client = GrpcMasterClient(f"127.0.0.1:{m.grpc_port}", tls=None)
+        try:
+            assert client.assign(count=1).error  # no volume server yet
+        finally:
+            client.close()
+        return
+    if cmd == "server":
+        cli.main(["server", "-masterPort", str(port), "-port", str(port2),
+                  "-dir", str(tmp_path / "sv"), "-filer", "-filerPort",
+                  str(free_grpc_ports(1)[0]), *argv[1:]])
+        vs, fs, m = s.servers
+        assert vs.grpc_port == port2 + 10000
+        assert fs.grpc_port == fs.http.port + 10000
+        return
+    m = s.master()
+    if cmd == "volume":
+        cli.main(["volume", "-port", str(port), "-dir", str(tmp_path / "v"),
+                  "-mserver", m.url, *argv[1:]])
+        vs = s.servers[-1]
+        assert vs.grpc_port == port + 10000
+        node = _wait(lambda: m.topo.find_node(vs.url), "the registration")
+        assert node.grpc_port == vs.grpc_port
+        client = GrpcVolumeClient(f"127.0.0.1:{vs.grpc_port}", tls=None)
+        try:
+            assert client.ping().stop_time_ns > 0
+        finally:
+            client.close()
+    elif cmd == "master.follower":
+        s.volumes(1)
+        a = http_json("GET", f"http://{m.url}/dir/assign")
+        vid = int(a["fid"].split(",")[0])
+        from seaweedfs_tpu_torch.server.master_grpc import start_master_grpc
+        server, gport = start_master_grpc(m, tls=None)
+        servers, release = [], threading.Event()
+
+        class Recorded(httpd.HttpServer):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                servers.append(self)
+
+        monkeypatch.setattr(httpd, "HttpServer", Recorded)
+        monkeypatch.setattr(cli, "_wait_forever", lambda: release.wait(60))
+        t = threading.Thread(target=cli.main, args=(
+            ["master.follower", "-port", str(port), "-masters",
+             f"127.0.0.1:{_free_ports(1)[0]}", "-grpcAddresses",
+             f"127.0.0.1:{gport}"],))
+        t.start()
+        try:
+            _follower_answers(f"127.0.0.1:{port}", vid, [a["url"]])
+        finally:
+            release.set()
+            t.join(timeout=20)
+            for srv in servers:
+                srv.stop()
+            server.stop(0)
+        assert not t.is_alive()
+    elif cmd == "filer" and argv[1] == "-grpc":
+        cli.main(["filer", "-port", str(port), "-master", m.url, "-grpc"])
+        fs = s.servers[-1]
+        assert fs.grpc_port == port + 10000
+        client = GrpcFilerClient(f"127.0.0.1:{fs.grpc_port}", tls=None)
+        try:
+            client.kv_put(b"k", b"v")
+            assert client.kv_get(b"k") == b"v"
+        finally:
+            client.close()
+    else:
+        etcd = MiniEtcdServer().start()
+        s.volumes(1)
+        try:
+            cli.main(["filer", "-port", str(port), "-master", m.url,
+                      "-store", "etcd", "-dir", f"127.0.0.1:{etcd.port}"])
+            fs = s.servers[-1]
+            assert fs.filer.store.name == "etcd"
+            status, _, _ = http_call("POST", f"http://{fs.url}/e/f.txt",
+                                     body=b"in etcd")
+            assert status < 300
+            assert any(k.endswith(b"\x00f.txt") for k in etcd._kv)
+            assert http_call("GET", f"http://{fs.url}/e/f.txt")[1] == \
+                b"in etcd"
+        finally:
+            s.stop()  # the filer before its etcd
+            s.servers.clear()
+            etcd.stop()
 
 
 def test_version_and_scaffold_match_jax(capsys, tmp_path):
@@ -556,14 +675,20 @@ def test_backup_matches_jax_and_incremental_raises(stacks, tmp_path, capsys):
     vol.sync()
     assert (tmp_path / "port_bak" / f"{vid}.dat").read_bytes() == \
         open(vol.file_name() + ".dat", "rb").read()
-    # a second run: the port's server advertises no gRPC port, so it is a
-    # full copy again
+    # a second run: this server runs without -grpc and advertises no gRPC
+    # port, so it is a full copy again
     assert maintenance.backup_volume(m.url, vid,
                                      str(tmp_path / "port_bak")) == \
         got["backed_up"]
-    with pytest.raises(NotImplementedError, match="gRPC"):
-        maintenance._backup_incremental(str(tmp_path), "", vid,
-                                        got["backed_up"], vs.url, 1)
+    # the incremental catch-up tails over gRPC: where no plane listens it
+    # fails, and backup_volume then copies in full, as the reference does
+    # (tests/test_torch_grpc_planes.py runs it against -grpc servers)
+    import grpc
+    with pytest.raises(grpc.RpcError) as ei:
+        maintenance._backup_incremental(str(tmp_path / "port_bak"), "", vid,
+                                        got["backed_up"], vs.url,
+                                        _free_ports(1)[0])
+    assert ei.value.code() == grpc.StatusCode.UNAVAILABLE
 
 
 # ---------------- master.follower ----------------

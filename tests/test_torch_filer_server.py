@@ -452,9 +452,8 @@ def test_repl_fs_commands_and_volume_fsck(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("kw,slice_", [
-    ({"grpc_port": 18888}, "gRPC slice"),
     ({"store": "redis"}, "filer-stores slice"),
-    ({"store": "etcd"}, "gRPC slice"),
+    ({"store": "mysql"}, "filer-stores slice"),
     ({"store": "remote", "store_dir": "127.0.0.1:8888"},
      "filer-stores slice")])
 def test_unported_filer_options_raise_before_binding(kw, slice_,

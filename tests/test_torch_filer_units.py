@@ -436,7 +436,7 @@ def test_lsm_directory_opens_in_either_package(tmp_path):
     ("redis", "filer-stores slice"), ("mysql", "filer-stores slice"),
     ("postgres2", "filer-stores slice"), ("mongodb", "filer-stores slice"),
     ("cassandra", "filer-stores slice"), ("elastic7", "filer-stores slice"),
-    ("remote", "filer-stores slice"), ("etcd", "gRPC slice")])
+    ("remote", "filer-stores slice")])
 def test_unported_stores_raise_naming_their_slice(name, slice_):
     with pytest.raises(NotImplementedError, match=slice_):
         p_store.make_store(name, host="127.0.0.1", port=1)

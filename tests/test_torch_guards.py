@@ -23,6 +23,7 @@ from seaweedfs_tpu_torch.ops import rs_cuda, rs_mxu, rs_torch
 from seaweedfs_tpu_torch.parallel import streaming
 from seaweedfs_tpu_torch.storage.erasure_coding import encoder as tenc
 from seaweedfs_tpu_torch.utils import native_build
+from torch_ports import free_grpc_ports
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "seaweedfs_tpu_torch"
@@ -78,7 +79,13 @@ def test_port_and_smoke_never_import_jax_or_reference():
                 "utils/chunk_cache.py", "utils/cipher.py",
                 "utils/aesgcm_compat.py", "stats/autocap.py",
                 "notification/queue.py", "remote_storage/remote_storage.py",
-                "pb/remote_pb2.py", "utils/unported.py"):
+                "pb/remote_pb2.py", "utils/unported.py",
+                # the gRPC plane
+                "pb/master_pb2.py", "pb/volume_server_pb2.py",
+                "pb/filer_pb2.py", "pb/etcdkv_pb2.py", "utils/tls.py",
+                "query/json_query.py", "server/master_grpc.py",
+                "server/volume_grpc.py", "server/filer_grpc.py",
+                "filer/etcd_store.py"):
         assert PORT / rel in files, rel
     bad = {str(f.relative_to(REPO)): [n for n in _imported_modules(f)
                                       if _forbidden(n)]
@@ -323,35 +330,43 @@ def test_scrubber_on_a_cpu_store_takes_no_cuda_path(no_cuda, tmp_path):
 
 
 def test_control_plane_raises_for_what_is_not_ported(monkeypatch):
-    """The master, client and shell take no device, and the planes they
-    lack raise NotImplementedError where they are reached: the master's
-    gRPC plane (before any socket is bound, also as `master -grpc` and
-    `volume -grpc` on the command line), the client's gRPC push mode, and
-    the wire-protocol filer stores a filer would be made on. The shell
-    drives volume servers over HTTP without probing for gRPC."""
+    """The master, client and shell take no device. Their gRPC planes are
+    ported: the master serves one on grpc_port (also as `master -grpc` on
+    the command line), the client's push mode starts its KeepConnected
+    loop, and the shell probes each volume server's plane once, caching a
+    miss. What stays unported raises where it is reached: the
+    wire-protocol filer stores a filer would be made on."""
     from seaweedfs_tpu_torch import cli
     from seaweedfs_tpu_torch.client.wdclient import MasterClient
-    from seaweedfs_tpu_torch.server import master, volume_server
+    from seaweedfs_tpu_torch.server import master
     from seaweedfs_tpu_torch.shell.commands import ShellContext
-    bound = []
-    for mod in (master, volume_server):
-        monkeypatch.setattr(mod, "HttpServer",
-                            lambda *a, **kw: bound.append(a))
-    with pytest.raises(NotImplementedError, match="gRPC"):
-        master.MasterServer(grpc_port=19333)
-    with pytest.raises(NotImplementedError, match="gRPC"):
-        cli.main(["master", "-port", "19333", "-grpc"])
-    with pytest.raises(NotImplementedError, match="gRPC"):
-        cli.main(["volume", "-port", "19380", "-device", "cpu", "-grpc"])
-    assert bound == []
-    monkeypatch.undo()
-    with pytest.raises(NotImplementedError, match="gRPC"):
-        MasterClient("127.0.0.1:1", grpc_address="127.0.0.1:2")
+    m = master.MasterServer(grpc_port=0)
+    m.start()
+    try:
+        assert m.grpc_port and m._grpc_server is not None
+    finally:
+        m.stop()
+    served = []
+    monkeypatch.setattr(cli, "_serve_until_signal",
+                        lambda *srv, ready="": served.extend(srv))
+    port = free_grpc_ports(1)[0]
+    cli.main(["master", "-port", str(port), "-grpc"])
+    try:
+        assert served[0].grpc_port == port + 10000  # as upstream
+    finally:
+        for srv in served:
+            srv.stop()
+    mc = MasterClient("127.0.0.1:1", grpc_address="127.0.0.1:2")
+    try:
+        assert mc._kc_thread.is_alive()
+    finally:
+        mc.stop()
     from seaweedfs_tpu_torch.filer.filerstore import make_store
     with pytest.raises(NotImplementedError, match="filer-stores slice"):
         make_store("redis")
     sh = ShellContext("127.0.0.1:1")
     assert sh._grpc_client("127.0.0.1:2") is None
+    assert sh._grpc_clients == {"127.0.0.1:2": None}
 
 
 def test_volume_command_raises_without_cuda_before_binding(no_cuda,
@@ -378,7 +393,7 @@ def test_volume_command_raises_without_cuda_before_binding(no_cuda,
 
 
 @pytest.mark.parametrize("argv,slice_", [
-    (["filer", "-grpc"], "the gRPC slice"),
+    (["filer", "-ftp"], "the gateway slice"),
     (["s3"], "the gateway slice"),
     (["mount", "/mnt/weed"], "the gateway slice"),
 ])

@@ -473,18 +473,31 @@ def test_vacuum_invalidation_via_server(tmp_path):
 
 
 def test_unported_planes_raise(tmp_path):
-    """The gRPC plane is not ported: asking for it raises before a socket
-    is bound; a cloud-tier move answers the volume's NotImplementedError
-    as an error response."""
-    with pytest.raises(NotImplementedError, match="gRPC"):
-        _port([str(tmp_path / "g")], "127.0.0.1:1", grpc_port=0)
+    """The gRPC plane is ported: grpc_port=0 serves it beside the HTTP
+    plane and advertises its port in the heartbeat. The cloud tier is
+    not: a cloud-tier move answers the volume's NotImplementedError as an
+    error response."""
+    from seaweedfs_tpu_torch.pb import volume_server_pb2 as tvpb
+    from seaweedfs_tpu_torch.server.volume_grpc import GrpcVolumeClient
     master = MasterServer()
     master.start()
-    vs = _port([str(tmp_path / "t")], master.url, scrub_interval_s=0)
+    vs = _port([str(tmp_path / "t")], master.url, scrub_interval_s=0,
+               grpc_port=0)
     try:
         vs.start()
+        assert vs.grpc_port
+        node = master.topo.find_node(vs.url)
+        assert node is not None and node.grpc_port == vs.grpc_port
         http_json("POST", f"http://{vs.url}/admin/allocate_volume",
                   {"volume_id": 3})
+        client = GrpcVolumeClient(f"127.0.0.1:{vs.grpc_port}", tls=None)
+        try:
+            st = client._unary("VolumeServerStatus",
+                               tvpb.VolumeServerStatusRequest(),
+                               tvpb.VolumeServerStatusResponse)
+        finally:
+            client.close()
+        assert [v.id for v in st.volumes] == [3]
         status, body, _ = http_call(
             "POST", f"http://{vs.url}/admin/tier/demote",
             json_body={"volume_id": 3, "endpoint": "127.0.0.1:1",
