@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--volume-mb 1024] [--alt-volume-mb 256]
                           [--batch-volumes 64] [--batch-volume-mb 32]
                           [--cluster-volume-mb 256] [--cli-volume-mb 512]
-                          [--filer-mb 1000] [--seed 0]
+                          [--filer-mb 1000] [--s3-mb 1024] [--seed 0]
 
 Phases, each printing one JSON line:
   1. device      card name and `nvidia-smi` name / power limit; then the
@@ -193,7 +193,7 @@ Phases, each printing one JSON line:
                  keeps at least 10) and dropped by the master; the filer
                  SIGKILLed and restarted from its lsm directory (a cold
                  chunk cache; fs.du unchanged); degraded GETs through it,
-                 1 thread over the proxied then the redirected files, and
+                 1 thread over the redirected then the proxied files, and
                  16 threads (one K1 launch per interval each live server
                  reconstructs, above 0 on both routes); the rebuild, by
                  the master's repair queue where its 60 s grace ran out
@@ -213,7 +213,39 @@ Phases, each printing one JSON line:
                  the filer's chunk GC
                  counting each deleted, none abandoned. nvidia-smi lists
                  the smoke and the live volume servers only; the filer
-                 holds no /dev/nvidiaN
+                 holds no /dev/nvidiaN.
+                 The S3 route in the same process layout (the `s3` line):
+                 `... s3 -filer F -master M` beside the filer (its view
+                 of the filer through filer/remote_store.py; no
+                 /dev/nvidiaN either). First the cloud tier, unsigned as
+                 storage/backend.py is: a bucket `cold` of --s3-mb / 4
+                 MiB written through the gateway into volumes of its own,
+                 each marked read-only and moved by `volume.tier.upload`
+                 to the gateway's bucket `tier`, every cold object read
+                 back through the gateway (volume server ->
+                 S3BackendFile range reads -> the gateway -> the other
+                 servers; the tier reads counted from the gateway's
+                 metrics), /admin/tier, `volume.tier.download` (each
+                 .dat sha256-equal to the tiered one), every object read
+                 again, both buckets deleted (the gateway's chunk GC
+                 counting every chunk). Then `s3.configure` through the
+                 REPL and SigV4-signed traffic through the port's
+                 S3Remote: --s3-mb (1024) MiB of seeded objects of 1 KiB
+                 to 64 MiB in the bucket `bkt`, four of them multipart
+                 in 8 MiB parts, PUT on 1 and 16 threads, GET on 1 and
+                 16 threads sha256-equal, ListObjectsV2 by prefix and
+                 delimiter, a presigned GET, unsigned requests refused.
+                 `ec.encode -collection bkt` runs with the tree's; the
+                 gateway restarts with the filer (a cold chunk cache); at
+                 the same SIGKILL every object and 64 Range GETs through the
+                 gateway on one thread as soon as the master has dropped
+                 the server (before the filer's passes, so well inside the
+                 repair queue's grace), and on 16 threads after the
+                 filer's passes (K1 launches = the live
+                 servers' reconstructs, above 0 over both); after the
+                 rebuild every object once more; last the bucket deleted
+                 through S3 and its chunks counted by the gateway's GC.
+                 The route's K1 launches count under the path key `s3`
 Then the memory line, the kernel summary line, the `nvidia-smi` line, and
 the result line {"ok": true, "device": {...}} last. Each path phase is
 driven with every kernel entry's launch counter set to 0 just before it
@@ -2904,6 +2936,7 @@ class _CliCluster:
         self.masters: dict[str, subprocess.Popen] = {}
         self.servers: dict[str, subprocess.Popen] = {}
         self.filers: dict[str, subprocess.Popen] = {}
+        self.gateways: dict[str, subprocess.Popen] = {}
         self.followers: dict[str, subprocess.Popen] = {}
         self.filer_starts = 0
         self.counted = 0
@@ -2994,6 +3027,18 @@ class _CliCluster:
                 "-dir", store_dir, *(["-grpc"] if grpc else [])])
         return url
 
+    def start_gateway(self, master: str, filer: str, port: int) -> str:
+        """`weed s3 -filer filer -master master` on `port`: the S3 gateway
+        as a process of its own over the filer (filer/remote_store.py),
+        its chunks read and written on the volume servers."""
+        url = f"127.0.0.1:{port}"
+        self.killed.discard(url)
+        self.start_s[url] = time.monotonic()
+        self.gateways[url] = self._spawn(f"s3_{port}", [
+            sys.executable, "-m", "seaweedfs_tpu_torch.cli", "s3",
+            "-port", str(port), "-filer", filer, "-master", master])
+        return url
+
     def start_follower(self, port: int, masters: str, grpc: str) -> str:
         """`weed master.follower -masters masters -grpcAddresses grpc` on
         `port`."""
@@ -3035,7 +3080,7 @@ class _CliCluster:
 
     def check_running(self) -> None:
         for url, p in {**self.masters, **self.servers, **self.filers,
-                       **self.followers}.items():
+                       **self.gateways, **self.followers}.items():
             if url not in self.killed and p.poll() is not None:
                 with open(p.log_path, errors="replace") as f:
                     tail = f.read()[-1500:]
@@ -3138,18 +3183,18 @@ class _CliCluster:
 
     def kill(self, url: str) -> None:
         procs = next(g for g in (self.servers, self.filers, self.masters,
-                                 self.followers) if url in g)
+                                 self.gateways, self.followers) if url in g)
         procs[url].kill()
         procs[url].wait(timeout=60)
         self.killed.add(url)
 
     def stop(self) -> dict[str, int]:
-        """SIGTERM the filers, the volume servers, then the masters (a
-        server's drain announcement needs a master); kill what outlives
-        60 s. Returns each process's exit code."""
+        """SIGTERM the gateways, the filers, the volume servers, then the
+        masters (a server's drain announcement needs a master); kill what
+        outlives 60 s. Returns each process's exit code."""
         codes = {}
-        for group in (self.followers, self.filers, self.servers,
-                      self.masters):
+        for group in (self.followers, self.gateways, self.filers,
+                      self.servers, self.masters):
             for p in group.values():
                 if p.poll() is None:
                     p.send_signal(signal.SIGTERM)
@@ -3698,6 +3743,7 @@ FILER_MID = 40                # one chunk of 256 KiB-4 MiB: the 302 route
 FILER_LEAVES = (4, 4, 4)      # 64 directories in three levels
 FILER_COLLECTION = "filer_smoke"
 QUEUE_GRACE_S = 60.0          # the master repair queue's scan_grace_s
+MASTER_PULSE_S = 5.0          # the master's pulse: one repair-queue scan each
 
 
 def make_filer_tree(root: str, total_mb: int, seed: int) -> list:
@@ -3818,8 +3864,239 @@ def grpc_listing(filer: str) -> dict:
     return {"path": path, "entries": len(grpc), "seconds": wall}
 
 
+S3_BUCKET = "bkt"          # the signed route's bucket, and its collection
+S3_COLD = "cold"           # the tier round trip's bucket
+S3_TIER = "tier"           # the bucket the cold volumes are tiered into
+S3_KEYS = ("SMOKEACCESSKEY0", "smoke/secret/KEY0")
+S3_PART = 8 << 20          # the multipart objects' part size
+S3_MULTIPART = 4           # multipart objects in the signed set
+S3_RANGES = 64             # random Range GETs per degraded pass
+
+
+def make_s3_objects(total_mb: int, seed: int, multipart: int = 0) -> list:
+    """A seeded set of about `total_mb` MiB of objects: `multipart`
+    objects of 2-4 S3_PART parts and a short one, then objects of 1-256
+    KiB (six in ten), 256 KiB-4 MiB (three) and 4-64 MiB (one) until the
+    total is reached, keyed p<i>/obj<n> and p<i>/q<j>/obj<n>. Returns
+    [(key, data, sha256 digest, multipart)]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sizes = [(int(rng.integers(2, 5)) * S3_PART
+              + int(rng.integers(1, S3_PART)), True)
+             for _ in range(multipart)]
+    bands = ((1 << 10, 256 << 10), (256 << 10, 4 << 20),
+             ((4 << 20) + 1, 64 << 20))
+    budget = total_mb << 20
+    n = 0
+    while sum(sz for sz, _ in sizes) < budget or n < 3:
+        lo, hi = bands[n % 3] if n < 3 else bands[
+            int(rng.choice(3, p=[0.6, 0.3, 0.1]))]
+        sizes.append((int(rng.integers(lo, hi + 1)), False))
+        n += 1
+    objs = []
+    for i, (size, mp) in enumerate(sizes):
+        p = int(rng.integers(8))
+        key = (f"p{p}/obj{i:05d}" if rng.random() < 0.25
+               else f"p{p}/q{int(rng.integers(4))}/obj{i:05d}")
+        data = rng.bytes(size)
+        objs.append((key, data, hashlib.sha256(data).digest(), mp))
+    order = rng.permutation(len(objs))
+    return [objs[i] for i in order]
+
+
+def _s3_put(client, key: str, data: bytes, multipart: bool) -> None:
+    """One object through the port's S3 client, SigV4-signed: a PUT, or
+    init / S3_PART parts / complete."""
+    import xml.etree.ElementTree as ET
+    if not multipart:
+        client.write_file(key, data)
+        return
+    status, body, _ = client._call("POST", key, {"uploads": ""})
+    if status != 200:
+        raise AssertionError(f"multipart init {key}: HTTP {status}")
+    upload = ET.fromstring(body).findtext("UploadId")
+    parts = []
+    for i, off in enumerate(range(0, len(data), S3_PART), 1):
+        status, _, headers = client._call(
+            "PUT", key, {"partNumber": str(i), "uploadId": upload},
+            data[off:off + S3_PART])
+        if status != 200:
+            raise AssertionError(f"part {i} of {key}: HTTP {status}")
+        etag = {k.lower(): v for k, v in headers.items()}["etag"]
+        parts.append(f"<Part><PartNumber>{i}</PartNumber><ETag>{etag}"
+                     "</ETag></Part>")
+    status, body, _ = client._call(
+        "POST", key, {"uploadId": upload},
+        ("<CompleteMultipartUpload>" + "".join(parts)
+         + "</CompleteMultipartUpload>").encode())
+    if status != 200:
+        raise AssertionError(f"multipart complete {key}: HTTP {status} "
+                             f"{body[:200]!r}")
+
+
+def _s3_puts(client, objs: list, threads: int):
+    """PUT `objs` on `threads` client threads; returns (wall, per-PUT
+    seconds)."""
+    took: list[float] = []
+
+    def put(part):
+        for key, data, _, mp in part:
+            t0 = time.perf_counter()
+            _s3_put(client, key, data, mp)
+            took.append(time.perf_counter() - t0)
+
+    t0 = time.monotonic()
+    _run_threads([(put, (objs[i::threads],), {}) for i in range(threads)])
+    return time.monotonic() - t0, took
+
+
+def _s3_gets(client, objs: list, threads: int):
+    """GET every object through the gateway on `threads` client threads,
+    each body held against its sha256; returns (wall, per-GET seconds)."""
+    took: list[float] = []
+
+    def get(part):
+        for key, data, digest, _ in part:
+            t0 = time.perf_counter()
+            body = client.read_file(key)
+            took.append(time.perf_counter() - t0)
+            if len(body) != len(data) or \
+                    hashlib.sha256(body).digest() != digest:
+                raise AssertionError(f"S3 GET {key}: {len(body)} of "
+                                     f"{len(data)} bytes, or not equal")
+
+    t0 = time.monotonic()
+    _run_threads([(get, (objs[i::threads],), {}) for i in range(threads)])
+    return time.monotonic() - t0, took
+
+
+def _s3_ranges(client, objs: list, seed: int, threads: int):
+    """S3_RANGES seeded Range GETs over the objects, each held against
+    the slice it names; returns (bytes, wall, per-GET seconds)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    picks = []
+    for i in rng.integers(len(objs), size=S3_RANGES):
+        key, data, _, _ = objs[int(i)]
+        off = int(rng.integers(len(data)))
+        picks.append((key, data, off,
+                      int(rng.integers(1, len(data) - off + 1))))
+    took: list[float] = []
+
+    def get(part):
+        for key, data, off, n in part:
+            t0 = time.perf_counter()
+            body = client.read_file(key, off, n)
+            took.append(time.perf_counter() - t0)
+            if body != data[off:off + n]:
+                raise AssertionError(f"S3 Range GET {key} [{off}, "
+                                     f"{off + n}): not equal")
+
+    t0 = time.monotonic()
+    _run_threads([(get, (picks[i::threads],), {}) for i in range(threads)])
+    return sum(p[3] for p in picks), time.monotonic() - t0, took
+
+
+def _s3_presigned_get(endpoint: str, key: str, data: bytes) -> int:
+    """A presigned GET of `key` (X-Amz-* query, no Authorization header)
+    through the port's sigv4; returns the status after checking the
+    body."""
+    import urllib.parse
+
+    from seaweedfs_tpu_torch.utils import sigv4
+    from seaweedfs_tpu_torch.utils.httpd import http_call
+    ak, sk = S3_KEYS
+    host = endpoint.split("//", 1)[1]
+    amz = time.strftime("%Y%m%dT%H%M%SZ", time.gmtime())
+    path = "/" + urllib.parse.quote(f"{S3_BUCKET}/{key}", safe="/~")
+    query = {"X-Amz-Algorithm": "AWS4-HMAC-SHA256",
+             "X-Amz-Credential": f"{ak}/{amz[:8]}/us-east-1/s3/"
+                                 "aws4_request",
+             "X-Amz-Date": amz, "X-Amz-Expires": "300",
+             "X-Amz-SignedHeaders": "host"}
+    query["X-Amz-Signature"] = sigv4.signature(
+        sk, amz[:8], "us-east-1", "s3", amz, "GET", path, query,
+        {"host": host}, ["host"], "UNSIGNED-PAYLOAD")
+    status, body, _ = http_call(
+        "GET", f"{endpoint}{path}?" + urllib.parse.urlencode(
+            query, quote_via=urllib.parse.quote), timeout=120)
+    if status != 200 or body != data:
+        raise AssertionError(f"presigned GET {key}: HTTP {status}")
+    return status
+
+
+def _s3_list(client, prefix: str, objs: list) -> dict:
+    """ListObjectsV2 of `prefix` with delimiter "/": exactly the keys
+    directly under it and one common prefix per subdirectory."""
+    import xml.etree.ElementTree as ET
+    status, body, _ = client._call("GET", "", {
+        "list-type": "2", "prefix": prefix, "delimiter": "/"})
+    if status != 200:
+        raise AssertionError(f"ListObjectsV2 {prefix}: HTTP {status}")
+    root = ET.fromstring(body)
+    keys = [c.findtext("Key") for c in root.findall("Contents")]
+    prefixes = [c.findtext("Prefix") for c in
+                root.findall("CommonPrefixes")]
+    under = [k for k, _, _, _ in objs if k.startswith(prefix)]
+    want_keys = sorted(k for k in under if "/" not in k[len(prefix):])
+    want_prefixes = sorted({prefix + k[len(prefix):].split("/")[0] + "/"
+                            for k in under if "/" in k[len(prefix):]})
+    if keys != want_keys or prefixes != want_prefixes:
+        raise AssertionError(f"ListObjectsV2 {prefix}: {len(keys)} keys, "
+                             f"prefixes {prefixes}; expected "
+                             f"{len(want_keys)}, {want_prefixes}")
+    return {"prefix": prefix, "keys": len(keys), "common_prefixes":
+            len(prefixes)}
+
+
+def s3_gateway_metrics(cl: "_CliCluster", gateway: str) -> dict:
+    """From the gateway process: its S3 request counts by (action,
+    bucket) and its filer view's chunk_gc_total by outcome, read off the
+    two metrics listeners its start-up lines name."""
+    import re
+
+    from seaweedfs_tpu_torch.utils.httpd import http_call
+    with open(cl.gateways[gateway].log_path, encoding="utf-8",
+              errors="replace") as f:
+        log = f.read()
+    out = {}
+    for kind, pattern in (("s3", r"s3 gateway up at \S+ \(metrics="
+                                 r"([\d.]+:\d+)\)"),
+                          ("filer", r"filer server up at \S+ \(store="
+                                    r"remote, metrics=([\d.]+:\d+)\)")):
+        addr = re.search(pattern, log).group(1)
+        status, body, _ = http_call("GET", f"http://{addr}/metrics",
+                                    timeout=10)
+        if status != 200:
+            raise AssertionError(f"{gateway}'s {kind} /metrics: {status}")
+        out[kind] = body.decode()
+    requests = {(m.group(1), m.group(2)): int(float(m.group(3)))
+                for m in re.finditer(
+                    r's3_request_total\{action="(\w+)",bucket="([^"]*)"\} '
+                    r'(\S+)', out["s3"])}
+    gc = {m.group(1): int(float(m.group(2))) for m in re.finditer(
+        r'filer_chunk_gc_total\{outcome="(\w+)"\} (\S+)', out["filer"])}
+    return {"requests": requests, "chunk_gc": gc}
+
+
+def _bucket_chunks(filer: str, bucket: str) -> int:
+    """The chunks of every object of `bucket`, from the filer's listing
+    (what deleting the bucket hands to the chunk GC)."""
+    from seaweedfs_tpu_torch.shell.fs_commands import FsContext
+    fsc = FsContext(filer)
+    n = 0
+    stack = [f"/buckets/{bucket}"]
+    while stack:
+        for e in fsc.ls(stack.pop(), limit=1 << 20):
+            if e["IsDirectory"]:
+                stack.append(e["FullPath"])
+            else:
+                n += len(e["chunks"])
+    return n
+
+
 def filer_phase(work: str, total_mb: int, seed: int,
-                counts: PathCounts) -> None:
+                counts: PathCounts, s3_mb: int = 1024) -> None:
     """22. The filer in front of the card's volume servers, each server a
     process of its own: `weed master`, four `weed volume` on the card and
     `weed filer -store lsm`; `weed shell` fs.configure, `weed filer.copy`
@@ -3827,7 +4104,11 @@ def filer_phase(work: str, total_mb: int, seed: int,
     ec.encode of the collection, the server holding the most shards
     SIGKILLed, the filer SIGKILLed and restarted from its lsm directory,
     degraded GETs through it (K1 in the live servers), ec.rebuild,
-    volume.fsck, fs.du, fs.ls, fs.rm -r and volume.fsck again."""
+    volume.fsck, fs.du, fs.ls, fs.rm -r and volume.fsck again. Beside
+    the filer, `weed s3` over it: a bucket tiered to the gateway itself
+    and back, `s3_mb` MiB of SigV4-signed objects in the bucket `bkt`
+    encoded with the tree, degraded S3 GETs at the same SIGKILL, GETs
+    after the rebuild and the bucket deleted (see s3_route)."""
     import urllib.parse
 
     from seaweedfs_tpu_torch.storage.erasure_coding import encoder, layout
@@ -3841,8 +4122,12 @@ def filer_phase(work: str, total_mb: int, seed: int,
     files = make_filer_tree(tree, total_mb, seed + 22)
     tree_s = time.monotonic() - t0
     tree_bytes = sum(size for _, size, _ in files)
+    objs = make_s3_objects(s3_mb, seed + 23, multipart=S3_MULTIPART)
+    cold = make_s3_objects(max(s3_mb // 4, 8), seed + 24)
+    s3_bytes = sum(len(d) for _, d, _, _ in objs)
     cl = _CliCluster(root)
     steps: dict = {}
+    s3: dict = {}
     launches: dict = {}
     contexts: dict = {}
     try:
@@ -3862,27 +4147,54 @@ def filer_phase(work: str, total_mb: int, seed: int,
             "GET", f"http://{master}/cluster/nodes?type=filer",
             timeout=10)["cluster_nodes"]] == [filer],
             "the filer to register", timeout=60.0)
+        gateway = cl.start_gateway(master, filer, _free_ports(1)[0])
+        startup.update(cl.wait_up([gateway], "/"))
+        endpoint = f"http://{gateway}"
         name = {u: i for i, u in enumerate(servers)}
 
         def launched(step: str, expect: dict[str, int]) -> dict:
             return cl.launched(step, expect, counts, "filer", name)
 
+        def s3_launched(step: str, expect: dict[str, int]) -> dict:
+            """launched() of the S3 route: its K1 launches under the path
+            key `s3`."""
+            return cl.launched(step, expect, counts, "s3", name)
+
+        def launched_split(step: str, by_route: dict) -> dict:
+            """launched() of a step that serves both routes (route ->
+            {server: launches}): each server checked against the sum,
+            each route's part recorded under its own path key."""
+            total: dict[str, int] = {}
+            for part in by_route.values():
+                for u, n in part.items():
+                    total[u] = total.get(u, 0) + n
+            per = cl.launched(step, total, PathCounts(), "filer", name)
+            for route, part in by_route.items():
+                n = sum(part.values())
+                if n:
+                    counts.add(route, "gf_apply", n, {
+                        "gf_apply": n, "mxu_apply": 0, "gf_apply_batch": 0})
+            return per
+
         def on_card(step: str) -> None:
             """One compute app per process with a CUDA context (this one
             and the live volume servers), each volume server with its
-            /dev/nvidiaN open, the filer without."""
+            /dev/nvidiaN open, the filer and the S3 gateway without."""
             apps = _smi_apps()
             live = cl.live_servers()
             holding = {name[u]: _holds_card(cl.servers[u].pid)
                        for u in live}
             filer_holds = _holds_card(cl.filers[filer].pid)
+            gateway_holds = _holds_card(cl.gateways[gateway].pid)
             contexts[step] = {"compute_apps": apps, "servers": holding,
-                              "filer": filer_holds}
+                              "filer": filer_holds,
+                              "s3_gateway": gateway_holds}
             if len(apps) != 1 + len(live) or not all(holding.values()) \
-                    or filer_holds:
+                    or filer_holds or gateway_holds:
                 raise AssertionError(f"{step}: compute apps {apps}, "
                                      f"servers holding the card {holding}, "
-                                     f"the filer {filer_holds}")
+                                     f"the filer {filer_holds}, the S3 "
+                                     f"gateway {gateway_holds}")
 
         def shell(*lines: str):
             out, wall, routes = cl.cli_counted(
@@ -3891,7 +4203,7 @@ def filer_phase(work: str, total_mb: int, seed: int,
             shell.routes = routes
             return _repl_outputs(out), wall
 
-        def vol_stats() -> dict:
+        def vol_stats(collection: str = FILER_COLLECTION) -> dict:
             """{vid: (server, .dat bytes)} of the collection's volumes."""
             topo = http_json("GET", f"http://{master}/dir/status",
                              timeout=10)["Topology"]
@@ -3900,10 +4212,10 @@ def filer_phase(work: str, total_mb: int, seed: int,
                 for r in dc["racks"]:
                     for n in r["nodes"]:
                         for v in n["volumes"]:
-                            if v.get("collection") == FILER_COLLECTION:
+                            if v.get("collection") == collection:
                                 out[v["id"]] = (n["id"], os.path.getsize(
                                     os.path.join(cl.vdir(n["id"]),
-                                                 f"{FILER_COLLECTION}_"
+                                                 f"{collection}_"
                                                  f"{v['id']}.dat")))
             return out
 
@@ -3943,6 +4255,174 @@ def filer_phase(work: str, total_mb: int, seed: int,
                                 out.setdefault(e["id"], {})[n["id"]] = ids
             return out
 
+        from seaweedfs_tpu_torch.remote_storage.s3_client import S3Remote
+        signed = S3Remote(endpoint, S3_BUCKET, access_key=S3_KEYS[0],
+                          secret_key=S3_KEYS[1])
+
+        def s3_gc_settled(before: dict, chunks: int) -> dict:
+            """The gateway's filer view deleted `chunks` chunks since
+            `before` (its chunk_gc_total), none abandoned."""
+            def settled():
+                g = s3_gateway_metrics(cl, gateway)["chunk_gc"]
+                got = {k: g.get(k, 0) - before.get(k, 0)
+                       for k in ("deleted", "retried", "abandoned")}
+                return got if got["deleted"] + got["abandoned"] >= chunks \
+                    else None
+            got = _wait_for(settled, "the gateway's chunk GC to account "
+                                     "for every chunk", timeout=120.0)
+            if got["abandoned"] or got["deleted"] != chunks:
+                raise AssertionError(f"S3 chunk GC {got}, {chunks} chunks")
+            return got
+
+        def s3_tier_round_trip() -> None:
+            """The cloud tier, unsigned as the backend is, so before any
+            identity exists: the bucket `cold` written through the
+            gateway into volumes of its own, each marked read-only and
+            tiered with `volume.tier.upload` to the gateway's bucket
+            `tier`; every cold object read back through the gateway (the
+            tiered volumes' reads go gateway -> filer -> volume server ->
+            S3BackendFile -> the gateway again -> the other servers);
+            `volume.tier.download`, the .dat back sha256-equal, every
+            object read again; both buckets deleted through S3."""
+            from seaweedfs_tpu_torch.remote_storage.s3_client import \
+                S3Remote as Client
+            cl.reset_counts()
+            for b in (S3_COLD, S3_TIER):
+                status = http_call("PUT", f"{endpoint}/{b}")[0]
+                if status != 200:
+                    raise AssertionError(f"PUT bucket {b}: HTTP {status}")
+            anon = Client(endpoint, S3_COLD)
+            cold_bytes = sum(len(d) for _, d, _, _ in cold)
+            wall, took = _s3_puts(anon, cold, 8)
+            s3["cold_put_8"] = _step(cold_bytes, wall, objects=len(cold),
+                                     **_ms_stats(took))
+            tiered = {v: st for v, st in vol_stats(S3_COLD).items()
+                      if st[1] > 8}
+            if not tiered:
+                raise AssertionError("the cold bucket filled no volume")
+            dats = {v: sha256_file(os.path.join(
+                cl.vdir(u), f"{S3_COLD}_{v}.dat"))
+                for v, (u, _) in tiered.items()}
+            lines = []
+            for v, (u, _) in sorted(tiered.items()):
+                lines += [f"volume.mark -volumeId {v} -node {u}",
+                          f"volume.tier.upload -volumeId {v} -endpoint "
+                          f"{endpoint} -bucket {S3_TIER}"]
+            replies, wall = shell(*lines)
+            for (v, (u, _)), up in zip(sorted(tiered.items()),
+                                       replies[1::2]):
+                base = os.path.join(cl.vdir(u), f"{S3_COLD}_{v}")
+                vif = json.load(open(base + ".vif"))
+                if os.path.exists(base + ".dat") or \
+                        up[u].get("tiered") != v or \
+                        vif["remote"]["bucket"] != S3_TIER:
+                    raise AssertionError(f"volume.tier.upload {v}: {up}, "
+                                         f"{vif}")
+            tier_bytes = sum(d for _, d in tiered.values())
+            s3["tier_upload"] = _step(tier_bytes, wall,
+                                      volumes=len(tiered))
+            before = s3_gateway_metrics(cl, gateway)["requests"]
+            wall, took = _s3_gets(anon, cold, 1)
+            after = s3_gateway_metrics(cl, gateway)["requests"]
+            ranged = after.get(("Read", S3_TIER), 0) - before.get(
+                ("Read", S3_TIER), 0)
+            if not ranged:
+                raise AssertionError("no read reached the tier bucket")
+            s3["cold_get_tiered_1"] = _step(cold_bytes, wall,
+                                            tier_reads=ranged,
+                                            **_ms_stats(took))
+            admin = {name[u]: http_json("GET", f"http://{u}/admin/tier",
+                                        timeout=30)
+                     for u in {u for u, _ in tiered.values()}}
+            s3["tier_status"] = {i: {"rungs": a.get("rungs"),
+                                     "stats": a.get("stats")}
+                                 for i, a in admin.items()}
+            replies, wall = shell(*[f"volume.tier.download -volumeId {v}"
+                                    for v in sorted(tiered)])
+            for v, (u, _) in tiered.items():
+                got = sha256_file(os.path.join(cl.vdir(u),
+                                               f"{S3_COLD}_{v}.dat"))
+                if got != dats[v]:
+                    raise AssertionError(f"volume {v}: the downloaded .dat "
+                                         "differs from the tiered one")
+            s3["tier_download"] = _step(tier_bytes, wall)
+            wall, took = _s3_gets(anon, cold, 1)
+            s3["cold_get_local_1"] = _step(cold_bytes, wall,
+                                           **_ms_stats(took))
+            s3_launched("s3_tier", {})
+            gc0 = s3_gateway_metrics(cl, gateway)["chunk_gc"]
+            chunks = sum(_bucket_chunks(filer, b)
+                         for b in (S3_COLD, S3_TIER))
+            for b in (S3_COLD, S3_TIER):
+                status = http_call("DELETE", f"{endpoint}/{b}")[0]
+                if status != 204:
+                    raise AssertionError(f"DELETE bucket {b}: {status}")
+            s3["cold_deleted"] = {"chunks": chunks,
+                                  "chunk_gc": s3_gc_settled(gc0, chunks)}
+
+        def s3_signed() -> None:
+            """`s3.configure` through the REPL, then SigV4-signed PUTs of
+            the bucket `bkt` on 1 and 16 threads (four multipart
+            objects), GETs on 1 and 16 threads, ListObjectsV2 by prefix
+            and delimiter, a presigned GET; unsigned requests refused."""
+            cl.reset_counts()
+            (conf,), wall = shell(f"s3.configure -user smoke -access "
+                                  f"{S3_KEYS[0]} -secret {S3_KEYS[1]} "
+                                  f"-actions Admin")
+            if conf != {"identities": ["smoke"]}:
+                raise AssertionError(f"s3.configure: {conf}")
+            s3["configure_s"] = wall
+            # the gateway's filer view sees the identity file once the
+            # filer's change log reaches it (its meta aggregator): from
+            # then on an unsigned request is refused
+            t0 = time.monotonic()
+            _wait_for(lambda: http_call("GET", f"{endpoint}/")[0] == 403,
+                      "the gateway to refuse unsigned requests",
+                      timeout=60.0)
+            s3["identity_visible_s"] = time.monotonic() - t0
+            status = signed._call("PUT", "")[0]
+            if status != 200:
+                raise AssertionError(f"PUT bucket {S3_BUCKET}: {status}")
+            # half the objects on each PUT pass, multipart ones too
+            halves = [[o for o in objs if o[3]][i::2]
+                      + [o for o in objs if not o[3]][i::2]
+                      for i in (0, 1)]
+            for step, part, threads in (("put_1", halves[0], 1),
+                                        ("put_16", halves[1], 16)):
+                wall, took = _s3_puts(signed, part, threads)
+                s3[step] = _step(sum(len(d) for _, d, _, _ in part), wall,
+                                 objects=len(part),
+                                 multipart=sum(m for *_, m in part),
+                                 **_ms_stats(took))
+            for step, threads in (("get_1", 1), ("get_16", 16)):
+                wall, took = _s3_gets(signed, objs, threads)
+                s3[step] = _step(s3_bytes, wall, **_ms_stats(took))
+            key = next(k for k, *_ in objs if k.count("/") == 2)
+            s3["list_v2"] = [_s3_list(signed, p, objs) for p in (
+                key.split("/")[0] + "/", key.rsplit("/", 1)[0] + "/")]
+            key, data, _, _ = objs[0]
+            s3["presigned_get"] = _s3_presigned_get(endpoint, key, data)
+            s3_launched("s3_signed", {})
+
+        def s3_degraded(step: str, threads: int) -> int:
+            """Every object of `bkt` and S3_RANGES Range GETs through the
+            gateway with a server lost; K1 launches = the live servers'
+            reconstructs."""
+            before = {u: recovered_all(u) for u in cl.live_servers()}
+            cl.reset_counts()
+            wall, took = _s3_gets(signed, objs, threads)
+            nbytes, rwall, rtook = _s3_ranges(signed, objs, seed + threads,
+                                              threads)
+            rec = {u: recovered_all(u) - before[u]
+                   for u in cl.live_servers()}
+            launches[f"s3_{step}"] = s3_launched(f"s3_{step}", rec)
+            s3[step] = _step(s3_bytes, wall, objects=len(objs),
+                             reconstructs=sum(rec.values()),
+                             k1_per_object=sum(rec.values()) / len(objs),
+                             ranges=_step(nbytes, rwall, **_ms_stats(rtook)),
+                             **_ms_stats(took))
+            return sum(rec.values())
+
         on_card("started")
 
         # 2. fs.configure: /data in the collection filer_smoke
@@ -3980,35 +4460,61 @@ def filer_phase(work: str, total_mb: int, seed: int,
             steps[step] = _step(tree_bytes, wall, **routes, **_ms_stats(took))
             if not routes["proxied"] or not routes["redirected"]:
                 raise AssertionError(f"{step}: routes {routes}")
+
+        # 4b. the S3 gateway: the cloud tier round trip, then signed
+        # traffic into the bucket `bkt` (s3_tier_round_trip, s3_signed)
+        s3_tier_round_trip()
+        s3_signed()
         on_card("before_encode")
 
-        # 5. lock / ec.encode -collection filer_smoke / unlock
+        # 5. lock / ec.encode -collection filer_smoke / ec.encode
+        # -collection bkt / unlock
         cl.reset_counts()
+        s3_vols = vol_stats(S3_BUCKET)
+        coll = {**{v: FILER_COLLECTION for v in vols},
+                **{v: S3_BUCKET for v in s3_vols}}
         replies, wall = shell("lock", f"ec.encode -collection "
-                                      f"{FILER_COLLECTION}", "unlock")
-        enc = replies[1]
+                                      f"{FILER_COLLECTION}",
+                              f"ec.encode -collection {S3_BUCKET}",
+                              "unlock")
+        enc = replies[1] + replies[2]
+        vols = {**vols, **s3_vols}
         if sorted(r["vid"] for r in enc) != sorted(vols):
             raise AssertionError(f"ec.encode {enc}, volumes {vols}")
-        expect: dict[str, int] = {}
+        expect: dict[str, dict[str, int]] = {"filer": {}, "s3": {}}
         for r in enc:
             src, dat = vols[r["vid"]]
             if r["source"] != src:
                 raise AssertionError(f"ec.encode source {r}")
-            expect[src] = expect.get(src, 0) + _encode_batches(
+            part = expect["s3" if coll[r["vid"]] == S3_BUCKET else "filer"]
+            part[src] = part.get(src, 0) + _encode_batches(
                 dat, layout.DATA_SHARDS_COUNT)
-        launches["encode"] = launched("encode", expect)
+        launches["encode"] = launched_split("encode", expect)
         _wait_for(lambda: all(sum(map(len, ec_shards().get(v, {})
                                       .values())) == total for v in vols),
                   "every shard to register", timeout=60.0)
         steps["ec_encode"] = _step(sum(d for _, d in vols.values()), wall,
                                    volumes=len(vols),
-                                   batches=sum(expect.values()),
+                                   s3_volumes=len(s3_vols),
+                                   batches={r: sum(p.values())
+                                            for r, p in expect.items()},
                                    http_admin_posts=sum(
                                        n for k, n in
                                        shell.routes["http"].items()
                                        if k.startswith("POST /admin/")),
                                    split=shell.routes["seconds"])
         placement = {r["vid"]: r["placement"] for r in enc}
+
+        def recovered_all(url: str) -> int:
+            """The server's reconstructs so far: its store counts them
+            for all its EC volumes together, and shard_stat answers
+            for a volume it holds shards of."""
+            for v in vols:
+                try:
+                    return cl.recovered(url, v, coll[v])
+                except HttpError:  # holds no shard of v
+                    continue
+            return 0
 
         # 6. SIGKILL the server holding the most shards
         queue_at_drop = repair_status()
@@ -4033,24 +4539,29 @@ def filer_phase(work: str, total_mb: int, seed: int,
         (du,), _ = shell("fs.du /data")
         if du != {"files": len(files), "bytes": tree_bytes}:
             raise AssertionError(f"after the filer restart: du {du}")
+        # the S3 gateway too, so that its filer view's chunk cache is as
+        # cold as the filer's; it answers 403 to an unsigned request
+        t0 = time.monotonic()
+        cl.kill(gateway)
+        cl.start_gateway(master, filer, int(gateway.rsplit(":", 1)[1]))
+
+        def refuses() -> bool:
+            cl.check_running()
+            try:
+                return http_call("GET", f"{endpoint}/", timeout=2)[0] == 403
+            except (ConnectionError, OSError):
+                return False
+        _wait_for(refuses, "the restarted S3 gateway", timeout=180.0)
+        s3["gateway_restart_s"] = time.monotonic() - t0
         t0 = time.monotonic()
         _wait_for(lambda: victim not in cl.registered(master),
                   "the master to drop the killed server", timeout=90.0)
         pruned = time.monotonic()
         steps["prune_wait_s"] = pruned - t0
 
-        # 8. degraded GETs through the filer: 1 thread, proxied files then
-        # redirected ones, then 16 threads over all; K1 launches = each
+        # 8. degraded GETs through the filer: 1 thread, redirected files
+        # then proxied ones, then 16 threads over all; K1 launches = each
         # live server's reconstructs
-        def recovered_all(url: str) -> int:
-            n = 0
-            for v in vols:
-                try:
-                    n += cl.recovered(url, v, FILER_COLLECTION)
-                except HttpError:  # holds no shard of v
-                    continue
-            return n
-
         def degraded(step: str, part: list, threads: int) -> dict:
             queue = repair_status()
             before = {u: recovered_all(u) for u in cl.live_servers()}
@@ -4065,14 +4576,26 @@ def filer_phase(work: str, total_mb: int, seed: int,
                                 **_ms_stats(took))
             return rec
 
+        # 8a. first the S3 route's one-thread pass (until the drop the
+        # gateway may 302 a GET to the killed server, which the master
+        # still lists), then the filer's, its short redirected pass
+        # first: each must find the volumes still degraded, and the
+        # master's repair queue rebuilds them once its 60 s grace from
+        # the drop has run out
+        s3_k1 = s3_degraded("get_degraded_1", 1)
         for step, part in (
-                ("get_degraded_1_proxied",
-                 [f for f in files if f[0] not in redirected]),
                 ("get_degraded_1_redirected",
-                 [f for f in files if f[0] in redirected])):
+                 [f for f in files if f[0] in redirected]),
+                ("get_degraded_1_proxied",
+                 [f for f in files if f[0] not in redirected])):
             if not sum(degraded(step, part, 1).values()):
                 raise AssertionError(f"{step}: nothing reconstructed")
+        # 8b. the 16-thread passes of both routes
         degraded("get_degraded_16", files, 16)
+        s3_k1 += s3_degraded("get_degraded_16", 16)
+        if not s3_k1:
+            raise AssertionError("the degraded S3 GETs reconstructed "
+                                 "nothing")
         on_card("degraded")
 
         def shell_rebuild(step: str, want: dict) -> dict:
@@ -4089,31 +4612,33 @@ def filer_phase(work: str, total_mb: int, seed: int,
                     for p in plans):
                 raise AssertionError(f"{step}: ec.rebuild planned {plans}, "
                                      f"expected {want}")
-            expect: dict = {}
+            expect: dict = {"filer": {}, "s3": {}}
             rebuilt_bytes = 0
             for plan in plans:
                 v, rb = plan["vid"], plan["rebuilder"]
                 for sid in want[v]:
-                    shard = f"{FILER_COLLECTION}_{v}{layout.shard_ext(sid)}"
+                    shard = f"{coll[v]}_{v}{layout.shard_ext(sid)}"
                     if sha256_file(os.path.join(cl.vdir(rb), shard)) != \
                             sha256_file(os.path.join(cl.vdir(victim),
                                                      shard)):
                         raise AssertionError(f"{step}: rebuilt {shard} on "
                                              f"{rb} differs from the lost one")
                 size = os.path.getsize(os.path.join(
-                    cl.vdir(rb), f"{FILER_COLLECTION}_{v}"
+                    cl.vdir(rb), f"{coll[v]}_{v}"
                                  f"{layout.shard_ext(want[v][0])}"))
                 rebuilt_bytes += size * len(want[v])
-                expect[rb] = expect.get(rb, 0) + \
+                part = expect["s3" if coll[v] == S3_BUCKET else "filer"]
+                part[rb] = part.get(rb, 0) + \
                     -(-size // encoder.DEFAULT_BATCH_SIZE)
             no_queue_fallback(step, queue_at_drop)
-            launches[step] = launched(step, expect)
+            launches[step] = launched_split(step, expect)
             _wait_for(lambda: not queue_busy() and all(
                 sum(map(len, ec_shards().get(v, {}).values())) == total
                 for v in vols), "the rebuilt shards to register once each",
                 timeout=60.0)
             return _step(rebuilt_bytes, wall, volumes=len(plans),
-                         batches=sum(expect.values()),
+                         batches={r: sum(p.values())
+                                  for r, p in expect.items()},
                          rebuilders=sorted({name[p["rebuilder"]]
                                             for p in plans}))
 
@@ -4145,13 +4670,13 @@ def filer_phase(work: str, total_mb: int, seed: int,
                       if set(lost[v]) <= set(ids))
             last = http_json(
                 "GET", f"http://{rb}/admin/ec/shard_stat?volumeId={v}"
-                       f"&collection={FILER_COLLECTION}",
+                       f"&collection={coll[v]}",
                 timeout=30).get("last_repair", {})
             if not last.get("mode", "").startswith("partial"):
                 raise AssertionError(f"the repair queue rebuilt {v} on {rb} "
                                      f"by {last}")
             for sid in lost[v]:
-                shard = f"{FILER_COLLECTION}_{v}{layout.shard_ext(sid)}"
+                shard = f"{coll[v]}_{v}{layout.shard_ext(sid)}"
                 if sha256_file(os.path.join(cl.vdir(rb), shard)) != \
                         sha256_file(os.path.join(cl.vdir(victim), shard)):
                     raise AssertionError(f"the repair queue's {shard} on "
@@ -4172,13 +4697,20 @@ def filer_phase(work: str, total_mb: int, seed: int,
             # 9b. the queue came first, so the operator's route runs on a
             # fresh loss: the shards it rebuilt unmounted and deleted from
             # their holder, and at once (well inside the queue's grace)
-            # `lock` / `ec.rebuild` / `unlock` rebuilds them on the card
+            # `lock` / `ec.rebuild` / `unlock` rebuilds them on the card.
+            # The queue's scan forgets when a volume became degraded only
+            # at a tick (one each master pulse) that sees it whole: shards
+            # deleted before that tick leave the old time standing, the
+            # queue resubmits at once and its rebuild overlaps the one
+            # below. Two pulses after the shards registered whole, a tick
+            # has seen them.
+            time.sleep(2 * MASTER_PULSE_S + 1.0)
             for v, (rb, _) in queued.items():
                 http_json("POST", f"http://{rb}/admin/ec/unmount",
-                          {"volume_id": v, "collection": FILER_COLLECTION,
+                          {"volume_id": v, "collection": coll[v],
                            "shard_ids": lost[v]}, timeout=60)
                 http_json("POST", f"http://{rb}/admin/ec/delete_shards",
-                          {"volume_id": v, "collection": FILER_COLLECTION,
+                          {"volume_id": v, "collection": coll[v],
                            "shard_ids": lost[v]}, timeout=60)
             _wait_for(lambda: all(
                 not set(lost[v]) & {s for ids in ec_shards().get(v, {})
@@ -4187,6 +4719,14 @@ def filer_phase(work: str, total_mb: int, seed: int,
                 timeout=60.0)
             steps["ec_rebuild_after_queue"] = shell_rebuild(
                 "rebuild_after_queue", {v: lost[v] for v in queued})
+
+        # 9c. every object of `bkt` once more through the gateway
+        before = {u: recovered_all(u) for u in cl.live_servers()}
+        cl.reset_counts()
+        wall, took = _s3_gets(signed, objs, 16)
+        launches["s3_get_rebuilt_16"] = s3_launched("s3_get_rebuilt_16", {
+            u: recovered_all(u) - before[u] for u in cl.live_servers()})
+        s3["get_rebuilt_16"] = _step(s3_bytes, wall, **_ms_stats(took))
 
         # 10. volume.fsck, fs.du, fs.ls
         cl.reset_counts()
@@ -4256,10 +4796,27 @@ def filer_phase(work: str, total_mb: int, seed: int,
                           **{k: fsck[k] for k in (
                               "volumes_checked", "missing_count",
                               "orphan_count", "purged")}}
+
+        # 12. the bucket `bkt` deleted through S3: its chunks leave the
+        # EC volumes through the gateway's chunk GC, none abandoned
+        gc0 = s3_gateway_metrics(cl, gateway)["chunk_gc"]
+        chunks = _bucket_chunks(filer, S3_BUCKET)
+        before = {u: recovered_all(u) for u in cl.live_servers()}
+        cl.reset_counts()
+        t0 = time.monotonic()
+        status = signed._call("DELETE", "")[0]
+        if status != 204:
+            raise AssertionError(f"DELETE bucket {S3_BUCKET}: {status}")
+        s3["bucket_deleted"] = {"chunks": chunks,
+                                "chunk_gc": s3_gc_settled(gc0, chunks),
+                                "seconds": time.monotonic() - t0}
+        s3_launched("s3_delete", {u: recovered_all(u) - before[u]
+                                  for u in cl.live_servers()})
         on_card("end")
     except BaseException:
         # what the phase measured before it failed, for the log
         emit("filer_failed", steps=steps, launches=launches)
+        emit("s3_failed", steps=s3)
         raise
     finally:
         codes = cl.stop()
@@ -4273,9 +4830,16 @@ def filer_phase(work: str, total_mb: int, seed: int,
                   for v, (u, d) in vols.items()},
          victim=name[victim], lost=lost,
          startup_s={("master" if u == master else "filer" if u == filer
-                     else f"volume{name[u]}"): t
+                     else "s3" if u == gateway else f"volume{name[u]}"): t
                     for u, t in startup.items()},
-         steps=steps, launches=launches, cuda_contexts=contexts,
+         steps=steps, launches={k: v for k, v in launches.items()
+                                if not k.startswith("s3_")},
+         cuda_contexts=contexts, bodies_sha256_equal=True)
+    emit("s3", s3_mb=s3_mb, objects=len(objs), bytes=s3_bytes,
+         cold_objects=len(cold),
+         cold_bytes=sum(len(d) for _, d, _, _ in cold), steps=s3,
+         launches={k: v for k, v in launches.items()
+                   if k.startswith("s3_")},
          bodies_sha256_equal=True)
 
 
@@ -4348,6 +4912,10 @@ def main() -> int:
     ap.add_argument("--filer-mb", type=int, default=1000,
                     help="MiB of the seeded tree the filer phase copies "
                          "into the filer (default 1000)")
+    ap.add_argument("--s3-mb", type=int, default=1024,
+                    help="MiB of signed objects the filer phase's S3 route "
+                         "writes into the bucket bkt (default 1024; the "
+                         "tiered bucket is a quarter of it)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if args.batch_volumes < len(BATCH_LOSSES):
@@ -4397,7 +4965,7 @@ def main() -> int:
                      counts, batch_counts)
         cluster_phase(work, args.cluster_volume_mb, args.seed, counts)
         cli_phase(work, args.cli_volume_mb, args.seed, counts)
-        filer_phase(work, args.filer_mb, args.seed, counts)
+        filer_phase(work, args.filer_mb, args.seed, counts, args.s3_mb)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit("memory", max_memory_allocated=torch.cuda.max_memory_allocated(0),

@@ -27,15 +27,19 @@ process's gRPC plane on its port + 10000, as the reference does;
 masters' KeepConnected stream; ``filer -store etcd`` speaks etcd's gRPC KV
 API.
 
+``s3``, ``webdav``, ``ftp`` and ``iam`` run the port's gateways over a
+remote filer (``filer/remote_store.py``), ``server -filer -s3`` the S3
+gateway beside the embedded filer, and ``filer -ftp`` the FTP gateway in
+the filer's process. None of them takes a device.
+
 What needs a plane the port does not have yet raises NotImplementedError
 before any socket is bound, naming the slice of ROADMAP.md queue 1 it
 comes with: the other wire-protocol filer stores (the filer-stores
-slice); ``filer -ftp``, ``filer -mq``, ``s3``, ``webdav``, ``ftp``,
-``iam``, ``server -s3``, ``mount``, ``fuse``,
-``filer.sync``, ``filer.replicate``, ``filer.backup``, ``filer.meta.*``
-and ``filer.remote.*`` (the gateways, mount, replication and remote
-storage). Their parsers stay, so ``-h`` and ``autocomplete`` list the
-reference's subcommands. It imports nothing of that package.
+slice); ``filer -mq``, ``mount``, ``fuse``, ``filer.sync``,
+``filer.replicate``, ``filer.backup``, ``filer.meta.*`` and
+``filer.remote.*`` (mount, mq and replication). Their parsers stay, so
+``-h`` and ``autocomplete`` list the reference's subcommands. It imports
+nothing of that package.
 """
 
 from __future__ import annotations
@@ -192,10 +196,8 @@ def cmd_volume(args):
 
 
 def cmd_server(args):
-    """All-in-one: master + volume (+ filer; s3 is not ported)."""
+    """All-in-one: master + volume (+ filer + s3 when asked)."""
     from seaweedfs_tpu_torch.server.master import MasterServer
-    if args.s3:
-        _not_ported("server -s3", GATEWAY_SLICE)(args)
     _open_device(args.device)
     ms = MasterServer(host=args.ip, port=args.masterPort,
                       volume_size_limit_mb=args.volumeSizeLimitMB)
@@ -218,22 +220,27 @@ def cmd_server(args):
             ready += f"; filer {fs.url}" + (
                 f" (grpc {fs.grpc_port})" if args.grpc else "")
             push_targets.append(("filer", fs))
+            if args.s3:
+                from seaweedfs_tpu_torch.gateway.s3_server import S3Server
+                s3 = S3Server(fs, host=args.ip, port=args.s3Port)
+                s3.start()
+                started.append(s3)
+                ready += f"; s3 {s3.url}"
+                push_targets.append(("s3", s3))
     except BaseException:
         for srv in reversed(started):
             srv.stop()
         raise
     _start_push(args, *push_targets)
     # volume drains first (its draining heartbeat needs the master
-    # still up), the filer next, master last
-    _serve_until_signal(vs, *started[2:], ms, ready=ready)
+    # still up), the gateway and filer next, master last
+    _serve_until_signal(vs, *reversed(started[2:]), ms, ready=ready)
 
 
 def cmd_filer(args):
     """Standalone filer server (reference command/filer.go). It takes no
     device: the chunks live on the volume servers."""
     from seaweedfs_tpu_torch.server.filer_server import FilerServer
-    if args.ftp:
-        _not_ported("filer -ftp (gateway/ftp_server.py)", GATEWAY_SLICE)(args)
     if args.mq:
         _not_ported("filer -mq (mq/broker.py)", GATEWAY_SLICE)(args)
     fs = FilerServer(args.master, host=args.ip, port=args.port,
@@ -248,8 +255,66 @@ def cmd_filer(args):
     extra = " cipher" if args.encryptVolumeData else ""
     if fs.grpc_port:
         extra += f", grpc {fs.grpc_port}"
-    _serve_until_signal(fs, ready=f"filer {fs.url} (store={args.store})"
-                        f"{extra}")
+    servers = [fs]
+    if args.ftp:
+        from seaweedfs_tpu_torch.gateway.ftp_server import FtpServer
+        ftp = FtpServer(fs, host=args.ip, port=args.ftpPort)
+        ftp.start()
+        servers.insert(0, ftp)
+        extra += f", ftp {ftp.url}"
+    _serve_until_signal(*servers, ready=f"filer {fs.url} "
+                        f"(store={args.store}){extra}")
+
+
+def cmd_gateway(args):
+    """Standalone S3 / WebDAV / FTP gateway attached to a REMOTE filer
+    (reference command/s3.go, webdav.go: gateways dial the filer; here
+    metadata flows through filer/remote_store.py, data through the
+    master/volume servers directly). Like the filer, it takes no device.
+
+    The filer view runs without its entry cache (a divergence from the
+    reference, whose view caches every lookup and never hears of a write
+    made through another filer: an identity added by `s3.configure` or
+    the filer's S3 Configure RPC would never reach its gateway)."""
+    from seaweedfs_tpu_torch.server.filer_server import FilerServer
+    fs = FilerServer(args.master, store="remote", store_dir=args.filer,
+                     announce=False, entry_cache=False)
+    fs.start()  # local HTTP surface (FTP STOR path rides it)
+    try:
+        if args.cmd == "s3":
+            from seaweedfs_tpu_torch.gateway.s3_server import S3Server
+            gw = S3Server(fs, host=args.ip, port=args.port)
+        elif args.cmd == "webdav":
+            from seaweedfs_tpu_torch.gateway.webdav_server import \
+                WebDavServer
+            gw = WebDavServer(fs, host=args.ip, port=args.port)
+        else:
+            from seaweedfs_tpu_torch.gateway.ftp_server import FtpServer
+            gw = FtpServer(fs, host=args.ip, port=args.port)
+        gw.start()
+    except BaseException:
+        fs.stop()
+        raise
+    _serve_until_signal(gw, fs, ready=f"filer-view {fs.url} -> "
+                        f"{args.filer}; {args.cmd} {gw.url}")
+
+
+def cmd_iam(args):
+    """Standalone IAM API server over a remote filer (reference
+    command/iam.go); its filer view runs without the entry cache, as the
+    gateways' do (cmd_gateway)."""
+    from seaweedfs_tpu_torch.gateway.iam_server import IamServer
+    from seaweedfs_tpu_torch.server.filer_server import FilerServer
+    fs = FilerServer(args.master, store="remote", store_dir=args.filer,
+                     announce=False, entry_cache=False)
+    fs.start()
+    try:
+        iam = IamServer(fs, host=args.ip, port=args.port)
+        iam.start()
+    except BaseException:
+        fs.stop()
+        raise
+    _serve_until_signal(iam, fs, ready=f"iam {iam.url} (filer {args.filer})")
 
 
 def cmd_filer_cat(args):
@@ -722,7 +787,7 @@ def main(argv=None):
         g.add_argument("-filer", default="127.0.0.1:8888",
                        help="filer address holding the metadata")
         g.add_argument("-master", default="127.0.0.1:9333")
-        g.set_defaults(fn=_not_ported(gw_name, GATEWAY_SLICE))
+        g.set_defaults(fn=cmd_gateway)
 
     fsy = sub.add_parser("filer.sync",
                          help="active-active sync between two filers")
@@ -830,7 +895,7 @@ def main(argv=None):
     im.add_argument("-port", type=int, default=8111)
     im.add_argument("-filer", default="127.0.0.1:8888")
     im.add_argument("-master", default="127.0.0.1:9333")
-    im.set_defaults(fn=_not_ported("iam", GATEWAY_SLICE))
+    im.set_defaults(fn=cmd_iam)
 
     ac = sub.add_parser("autocomplete",
                         help="emit a bash completion wordlist")

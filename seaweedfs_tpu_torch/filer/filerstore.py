@@ -11,7 +11,7 @@ kv + listing.
 
 The port's copy of seaweedfs_tpu/filer/filerstore.py. The embedded stores
 (memory, sqlite, lsm) and etcd (etcd_store.py, gRPC) work; the other
-wire-protocol stores and the remote-filer adapter are not ported yet, and
+wire-protocol stores are not ported yet, and
 ``make_store`` raises NotImplementedError for them naming their slice. It
 imports nothing of that package.
 """
@@ -165,18 +165,20 @@ def _unported(name: str, slice_: str):
 
 # The store registry — the analogue of the reference's blank-import
 # plugin table (weed/command/imports.go:17-36): the embedded stores
-# (memory, sqlite, lsm) and etcd (gRPC); the other wire-protocol families
-# (redis RESP2, mysql, postgres, mongodb OP_MSG, cassandra CQL,
-# elasticsearch REST) and the remote-filer adapter of gateway mode come
-# with later slices.
+# (memory, sqlite, lsm), etcd (gRPC) and the remote-filer adapter used by
+# gateway mode; the other wire-protocol families (redis RESP2, mysql,
+# postgres, mongodb OP_MSG, cassandra CQL, elasticsearch REST) come with
+# a later slice.
 STORES = {
     "memory": MemoryStore,
     "sqlite": _lazy("seaweedfs_tpu_torch.filer.abstract_sql", "SqliteStore"),
     "lsm": _lazy("seaweedfs_tpu_torch.filer.lsm_store", "LsmStore"),
     "etcd": _lazy("seaweedfs_tpu_torch.filer.etcd_store", "EtcdFilerStore"),
+    "remote": _lazy("seaweedfs_tpu_torch.filer.remote_store",
+                    "RemoteFilerStore"),
     **{name: _unported(name, FILER_STORES_SLICE)
        for name in ("redis", "mysql", "postgres", "mongodb", "cassandra",
-                    "elastic", "remote")},
+                    "elastic")},
 }
 _ALIASES = {"mongo": "mongodb", "postgres2": "postgres",
             "mysql2": "mysql", "redis2": "redis",

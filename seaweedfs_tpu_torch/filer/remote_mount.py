@@ -10,10 +10,9 @@ is cached locally (shell remote.cache), and uncache drops the local
 chunks again.
 
 The port's copy of seaweedfs_tpu/filer/remote_mount.py, with its own copy
-of the remote.proto messages (pb/remote_pb2.py). ``mount_buckets`` needs
-the S3-dialect client and raises NotImplementedError naming the gateway
-slice, as ``make_remote_client`` does for the cloud types. It imports
-nothing of that package.
+of the remote.proto messages (pb/remote_pb2.py); ``mount_buckets`` lists
+through the port's S3-dialect client. It imports nothing of that
+package.
 """
 
 from __future__ import annotations
@@ -27,7 +26,6 @@ from seaweedfs_tpu_torch.filer.entry import (
 from seaweedfs_tpu_torch.filer.filer import Filer
 from seaweedfs_tpu_torch.remote_storage.remote_storage import (
     RemoteConf, RemoteStorageClient, make_remote_client)
-from seaweedfs_tpu_torch.utils.unported import GATEWAY_SLICE, not_ported
 
 REMOTE_CONF_KV_KEY = b"/etc/remote.conf"
 REMOTE_MAPPING_KV_KEY = b"/etc/remote.mapping"
@@ -110,9 +108,9 @@ class RemoteMounts:
         """Mount every bucket of an S3-dialect remote under
         /buckets/<name> (reference command_remote_mount_buckets.go).
         Each bucket gets a derived conf `<remote>.<bucket>` so the
-        existing conf->client machinery addresses it directly. The
-        lister is not ported yet: past the checks of the reference this
-        raises."""
+        existing conf->client machinery addresses it directly."""
+        import dataclasses
+        import fnmatch
         confs = self.list_confs()
         if remote_name not in confs:
             raise KeyError(f"remote {remote_name!r} not configured")
@@ -122,8 +120,19 @@ class RemoteMounts:
                              f"remote, not {conf.type!r}")
         if not conf.endpoint:
             raise ValueError("remote conf has no endpoint")
-        raise not_ported("remote.mount.buckets (the S3-dialect bucket "
-                         "lister)", GATEWAY_SLICE)
+        from seaweedfs_tpu_torch.remote_storage.s3_client import S3Remote
+        lister = S3Remote(conf.endpoint, "", access_key=conf.access_key,
+                          secret_key=conf.secret_key, region=conf.region)
+        mounted = []
+        for b in lister.list_buckets():
+            if bucket_pattern and not fnmatch.fnmatch(b, bucket_pattern):
+                continue
+            sub = dataclasses.replace(conf, name=f"{remote_name}.{b}",
+                                      bucket=b)
+            self.configure(sub)
+            self.mount(f"/buckets/{b}", sub.name)
+            mounted.append(b)
+        return mounted
 
     def unmount(self, dir_path: str) -> None:
         mappings = self.list_mappings()

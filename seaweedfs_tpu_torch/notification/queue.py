@@ -10,7 +10,7 @@ The port's copy of seaweedfs_tpu/notification/queue.py: the SPI, the
 in-memory, log and file queues and ``attach_to_filer``. The Kafka, SQS and
 Pub/Sub queues are not ported yet: a notification.toml that enables one
 makes ``make_queue_from_config`` raise NotImplementedError naming the
-gateway slice. It imports nothing of that package.
+rest of the gateway slice. It imports nothing of that package.
 """
 
 from __future__ import annotations

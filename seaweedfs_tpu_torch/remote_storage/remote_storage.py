@@ -16,9 +16,10 @@ A remote location is written "name/bucket/path" (reference
 remote_storage.ParseLocation / RemoteStorageLocation proto).
 
 The port's copy of seaweedfs_tpu/remote_storage/remote_storage.py: the
-SPI, RemoteConf and the "local" backend. The S3-dialect and Azure clients
-are not ported yet: ``make_remote_client`` raises NotImplementedError for
-them, naming the gateway slice. It imports nothing of that package.
+SPI, RemoteConf, the "local" backend and the S3-dialect client
+(remote_storage/s3_client.py). The Azure client is not ported yet:
+``make_remote_client`` raises NotImplementedError for it, naming the
+rest of the gateway slice. It imports nothing of that package.
 """
 
 from __future__ import annotations
@@ -168,9 +169,25 @@ def make_remote_client(conf: RemoteConf) -> RemoteStorageClient:
         if not conf.root:
             raise ValueError("local remote needs a root directory")
         return LocalDirRemote(conf.root)
-    if conf.type in ("s3", "gcs", "b2", "wasabi", "azure"):
-        # the S3-dialect client (s3/gcs/b2/wasabi) and the Azure Blob
-        # client come with the gateway slice
+    if conf.type in ("s3", "gcs", "b2", "wasabi"):
+        # gcs (XML interop mode with HMAC keys), backblaze b2, and
+        # wasabi all serve the S3 dialect — one client covers them
+        # (reference ships separate SDK wrappers per provider; the
+        # wire protocol is the same)
+        from seaweedfs_tpu_torch.remote_storage.s3_client import S3Remote
+        endpoint = conf.endpoint or {
+            "gcs": "https://storage.googleapis.com",
+            "b2": "https://s3.us-west-004.backblazeb2.com",
+            "wasabi": "https://s3.wasabisys.com",
+        }.get(conf.type, "")
+        if not endpoint or not conf.bucket:
+            raise ValueError(f"{conf.type} remote needs endpoint and "
+                             "bucket")
+        return S3Remote(endpoint, conf.bucket,
+                        access_key=conf.access_key,
+                        secret_key=conf.secret_key, region=conf.region)
+    if conf.type == "azure":
+        # the Azure Blob client comes with the rest of the gateway slice
         raise not_ported(f"the {conf.type} remote storage client",
                          GATEWAY_SLICE)
     raise NotImplementedError(

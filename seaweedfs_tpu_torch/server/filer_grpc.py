@@ -7,11 +7,9 @@ Filer core the HTTP plane uses. filer.sync and the mount meta cache
 consume SubscribeMetadata when the peer speaks gRPC (HTTP long-poll
 remains as fallback).
 
-The port's copy of seaweedfs_tpu/server/filer_grpc.py, the same code but
-for the S3 admin service (weedtpu_s3_pb.SeaweedTpuS3 ``Configure``): it
-writes the IAM identity file through gateway/iam_server.py, which comes
-with the gateway slice of ROADMAP.md queue 1, so this server does not
-register it and a call gets ``UNIMPLEMENTED`` from gRPC. It takes no
+The port's copy of seaweedfs_tpu/server/filer_grpc.py, the same code,
+with the S3 admin service (weedtpu_s3_pb.SeaweedTpuS3 ``Configure``)
+writing the IAM identity file through gateway/iam_server.py. It takes no
 device and imports nothing of that package.
 """
 
@@ -428,11 +426,61 @@ class FilerGrpc:
         return grpc.method_handlers_generic_handler(SERVICE, rpcs)
 
 
+class S3ConfigGrpc:
+    """weedtpu_s3_pb.SeaweedTpuS3 — the S3 admin Configure RPC
+    (reference weed/pb/s3.proto), registered on the filer gRPC server:
+    the S3 gateway and IAM server read identity config from the filer
+    (/etc/iam/identity.json), so configuring it IS a filer write.
+
+    Accepts either a binary weedtpu_iam_pb.S3ApiConfiguration or the
+    legacy JSON identity file, persists canonical JSON."""
+
+    def __init__(self, filer_server):
+        self.fs = filer_server
+
+    def configure(self, request, context):
+        from seaweedfs_tpu_torch.gateway.iam_server import IdentityStore
+        from seaweedfs_tpu_torch.pb import iam_pb2, s3_pb2
+        content = request.s3_configuration_file_content
+        try:
+            conf = json.loads(content)
+            if not isinstance(conf, dict) or "identities" not in conf:
+                raise ValueError("missing identities")
+        except (UnicodeDecodeError, ValueError):
+            try:
+                api = iam_pb2.S3ApiConfiguration.FromString(content)
+            except Exception:
+                context.abort(grpc.StatusCode.INVALID_ARGUMENT,
+                              "neither S3ApiConfiguration proto nor "
+                              "identity JSON")
+            conf = {"identities": [
+                {"name": i.name,
+                 "credentials": [{"accessKey": c.access_key,
+                                  "secretKey": c.secret_key}
+                                 for c in i.credentials],
+                 "actions": list(i.actions)} for i in api.identities]}
+        IdentityStore(self.fs.filer).save(conf)
+        return s3_pb2.S3ConfigureResponse()
+
+    def handlers(self):
+        from seaweedfs_tpu_torch.pb import s3_pb2
+        rpcs = {
+            "Configure": grpc.unary_unary_rpc_method_handler(
+                self.configure,
+                request_deserializer=s3_pb2.S3ConfigureRequest.FromString,
+                response_serializer=(
+                    s3_pb2.S3ConfigureResponse.SerializeToString)),
+        }
+        return grpc.method_handlers_generic_handler(
+            "weedtpu_s3_pb.SeaweedTpuS3", rpcs)
+
+
 def start_filer_grpc(filer_server, host: str = "127.0.0.1",
                      port: int = 0, tls="auto") -> tuple[grpc.Server, int]:
     from seaweedfs_tpu_torch.utils import tls as tlsmod
     server = grpc.server(futures.ThreadPoolExecutor(max_workers=32))
-    server.add_generic_rpc_handlers((FilerGrpc(filer_server).handlers(),))
+    server.add_generic_rpc_handlers((FilerGrpc(filer_server).handlers(),
+                                     S3ConfigGrpc(filer_server).handlers()))
     cfg = tlsmod.load_tls_config("filer") if tls == "auto" else tls
     if cfg is not None:
         bound = server.add_secure_port(

@@ -15,10 +15,10 @@ The port's copy of seaweedfs_tpu/server/filer_server.py: every route, on
 the port's filer, client and HTTP core. It takes no device: the card is
 reached through the volume servers that hold the chunks. What the port
 does not have yet raises NotImplementedError naming its slice: the
-wire-protocol and remote-filer stores (``make_store``), and the cloud
-remote clients, which the ``/__api/remote/*`` routes answer as 501.
-``grpc_port`` starts the filer_pb gRPC plane (server/filer_grpc.py) but
-for its S3 ``Configure`` service, which comes with the gateway slice. One
+wire-protocol stores (``make_store``), and the Azure remote client,
+which the ``/__api/remote/*`` routes answer as 501. ``grpc_port`` starts
+the filer_pb gRPC plane (server/filer_grpc.py) with its S3 ``Configure``
+service. One
 difference on purpose: chunk GC is one worker draining a queue, which
 retries a shed or failed delete with backoff (``GC_ATTEMPTS``) and counts
 every outcome in ``chunk_gc_total`` (``abandoned``: a chunk left behind),
@@ -819,7 +819,7 @@ class FilerServer:
     @staticmethod
     def _not_ported_501(handler):
         """A route that can reach a client the port does not have yet
-        (the cloud remote clients) answers 501 with the slice it comes
+        (the Azure remote client) answers 501 with the slice it comes
         with."""
         def wrapped(req: Request) -> Response:
             try:

@@ -11,8 +11,6 @@ Differences from the JAX package, on purpose:
     scheduler; the constructor raises without a CUDA device unless the
     caller passes ``device="cpu"`` (the plain PyTorch versions, as the
     tests run them). The JAX server's store defaults to the host coder.
-  - the cloud-tier moves are not ported and raise NotImplementedError,
-    which the /admin/tier* endpoints answer with the volume's error (409).
 
 ``grpc_port`` starts the volume_server_pb gRPC admin plane
 (server/volume_grpc.py) beside the HTTP one; its EC RPCs run the same

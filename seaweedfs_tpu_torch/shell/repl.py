@@ -2,11 +2,13 @@
 
 The port's copy of seaweedfs_tpu/shell/repl.py: the same commands, help
 text and output, run on the port's ShellContext, with the ``fs.*`` family
-and ``volume.fsck`` on the port's filer. What needs a plane the port does
-not have yet raises NotImplementedError naming the gateway slice:
-``fs.meta.tail`` (replication/sync.py), the ``remote.*``, ``s3.*`` and
-``mq.*`` families, and ``mount.configure`` (mount/ with its gRPC admin
-plane). It takes no device and imports nothing of that package.
+and ``volume.fsck`` on the port's filer, the ``remote.*`` family on the
+filer's remote mounts and the ``s3.*`` family on the gateway's filer
+entries. What needs a plane the port does not have yet raises
+NotImplementedError naming the rest of the gateway slice:
+``fs.meta.tail`` (replication/sync.py), the ``mq.*`` family, and
+``mount.configure`` (mount/ with its gRPC admin plane). It takes no
+device and imports nothing of that package.
 """
 
 from __future__ import annotations
@@ -253,9 +255,49 @@ def run_command(sh: ShellContext, line: str):
         return {"locked": False}
     if cmd.startswith("fs."):
         return _fs_command(sh, cmd, args, flags)
-    if cmd.startswith(("remote.", "s3.", "mq.")):
-        # the remote-storage clients, the S3 gateway and the message
-        # queue broker behind these families
+    if cmd.startswith("remote."):
+        # reference shell command_remote_*.go
+        from seaweedfs_tpu_torch.utils.httpd import http_json
+        filer = _find_filer(sh)
+        base = f"http://{filer}/__api/remote"
+        op = cmd[len("remote."):]
+        if op == "configure":
+            if "delete" in flags:
+                return http_json("POST", f"{base}/configure",
+                                 {"name": flags["delete"], "delete": True})
+            return http_json("POST", f"{base}/configure", {
+                "name": flags["name"],
+                "type": flags.get("type", "local"),
+                "root": flags.get("root", ""),
+                "endpoint": flags.get("endpoint", ""),
+                "bucket": flags.get("bucket", ""),
+                "access_key": flags.get("accessKey", ""),
+                "secret_key": flags.get("secretKey", ""),
+                "region": flags.get("region", "us-east-1")})
+        if op == "mount.buckets":
+            return http_json("POST", f"{base}/mount_buckets", {
+                "remote_name": flags["remote"],
+                "bucket_pattern": flags.get("bucketPattern", "")})
+        if op == "mount":
+            return http_json("POST", f"{base}/mount", {
+                "dir": flags["dir"], "remote_name": flags["remote"],
+                "remote_path": flags.get("path", "")})
+        if op == "unmount":
+            return http_json("POST", f"{base}/unmount",
+                             {"dir": flags["dir"]})
+        if op == "meta.sync":
+            return http_json("POST", f"{base}/pull", {"dir": flags["dir"]})
+        if op == "cache":
+            return http_json("POST", f"{base}/cache",
+                             {"path": flags["path"]})
+        if op == "uncache":
+            return http_json("POST", f"{base}/uncache",
+                             {"path": flags["path"]})
+        if op == "status":
+            return http_json("GET", f"{base}/status")
+        raise ValueError(f"unknown remote command {op!r}")
+    if cmd.startswith("mq."):
+        # the message queue broker behind this family
         raise not_ported(cmd, GATEWAY_SLICE)
     if cmd == "volume.list":
         return sh.volume_list()
@@ -365,6 +407,176 @@ def run_command(sh: ShellContext, line: str):
             keep_local="-keepLocal" in args)
     if cmd == "volume.tier.download":
         return sh.volume_tier_download(int(flags["volumeId"]))
+    if cmd == "s3.configure":
+        # manage S3 identities in /etc/iam/identity.json (reference
+        # command_s3_configure.go; the gateway reads the same file)
+        import json as _json
+
+        from seaweedfs_tpu_torch.utils.httpd import http_call, http_json
+        filer = _find_filer(sh)
+        ident_url = f"http://{filer}/etc/iam/identity.json"
+        status, body, _ = http_call("GET", ident_url)
+        if status == 200 and body:
+            conf = _json.loads(body)
+        elif status == 404:
+            conf = {"identities": []}
+        else:
+            # NEVER treat a transient error as "no identities" — the
+            # save below would wipe every existing access key
+            raise RuntimeError(f"cannot load identities: HTTP {status}")
+        idents = conf["identities"]
+        if "delete" in flags:
+            idents[:] = [x for x in idents if x["name"] != flags["delete"]]
+        elif "user" in flags:
+            ident = next((x for x in idents
+                          if x["name"] == flags["user"]), None)
+            if ident is None:
+                ident = {"name": flags["user"], "credentials": [],
+                         "actions": []}
+                idents.append(ident)
+            if "access" in flags:
+                ident["credentials"] = [{"accessKey": flags["access"],
+                                         "secretKey":
+                                         flags.get("secret", "")}]
+            if "actions" in flags:
+                ident["actions"] = flags["actions"].split(",")
+        status, body, _ = http_call(
+            "POST", ident_url, body=_json.dumps(conf, indent=2).encode())
+        if status >= 300:
+            raise RuntimeError(f"save failed: HTTP {status}")
+        return {"identities": [x["name"] for x in idents]}
+    if cmd == "s3.circuitbreaker":
+        # concurrent-request limits, hot-reloaded by the gateway from
+        # /etc/s3/circuit_breaker proto bytes (reference
+        # command_s3_circuitbreaker.go edits the same config)
+        from seaweedfs_tpu_torch.pb import s3_pb2
+        from seaweedfs_tpu_torch.utils.httpd import http_call
+        filer = _find_filer(sh)
+        cb_url = f"http://{filer}/etc/s3/circuit_breaker"
+        status, body, _ = http_call("GET", cb_url)
+        if status == 200 and body:
+            conf = s3_pb2.S3CircuitBreakerConfig.FromString(body)
+        elif status == 404:
+            conf = s3_pb2.S3CircuitBreakerConfig()
+        else:
+            raise RuntimeError(f"cannot load config: HTTP {status}")
+        mutating = ("-disable" in args or "read" in flags
+                    or "write" in flags)
+        if "bucket" in flags and not mutating \
+                and flags["bucket"] not in conf.buckets:
+            # query-only: indexing the proto map would auto-vivify a
+            # phantom "configured" bucket in the display
+            opts = None
+        else:
+            opts = (conf.buckets[flags["bucket"]] if "bucket" in flags
+                    else conf.global_options)
+        changed = False
+        if opts is not None:
+            if "-disable" in args:
+                opts.enabled = False
+                changed = True
+            for action in ("read", "write"):
+                if action in flags:
+                    opts.enabled = True
+                    opts.actions[action.capitalize()] = int(flags[action])
+                    changed = True
+        if changed:
+            status, body, _ = http_call(
+                "POST", cb_url, body=conf.SerializeToString())
+            if status >= 300:
+                raise RuntimeError(f"save failed: HTTP {status}")
+        def show(o):
+            return {"enabled": o.enabled, "actions": dict(o.actions)}
+        return {"global": show(conf.global_options),
+                "buckets": {b: show(o) for b, o in conf.buckets.items()}}
+    if cmd == "s3.clean.uploads":
+        # purge stale multipart uploads (reference
+        # command_s3_clean_uploads.go); default cutoff 24h
+        import time as _time
+
+        from seaweedfs_tpu_torch.shell.fs_commands import FsContext
+        fsc = FsContext(_find_filer(sh))
+        cutoff = _time.time() - float(flags.get("timeAgo", 86400))
+        removed = []
+        try:
+            uploads = fsc.ls("/buckets/.uploads", limit=100000)
+        except NotADirectoryError:
+            uploads = []
+        for e in uploads:
+            if e.get("Mtime", 0) < cutoff:
+                fsc.rm(e["FullPath"], recursive=True)
+                removed.append(e["FullPath"])
+        return {"removed": removed}
+    if cmd.startswith("s3.bucket."):
+        # reference shell command_s3_bucket_*.go: buckets are dirs under
+        # /buckets with collection=<bucket>
+        from seaweedfs_tpu_torch.shell.fs_commands import FsContext
+        from seaweedfs_tpu_torch.utils.httpd import http_json
+        fsc = FsContext(_find_filer(sh))
+        op = cmd[len("s3.bucket."):]
+        if op == "quota":
+            # size quota on the bucket entry (reference
+            # command_s3_bucket_quota.go; the gateway enforces it)
+            path = f"/buckets/{flags['name']}"
+            out = http_json("GET", f"http://{fsc.filer_url}/__api/entry"
+                                   f"?path={path}")
+            entry = out["entry"]
+            if "-disable" in args:
+                entry.setdefault("extended", {}).pop("quota_bytes", None)
+                quota = 0
+            else:
+                quota = int(float(flags["sizeMB"]) * 1024 * 1024)
+                entry.setdefault("extended", {})["quota_bytes"] = \
+                    str(quota)
+            http_json("POST", f"http://{fsc.filer_url}/__api/entry",
+                      {"entry": entry, "meta_only": True})
+            return {"bucket": flags["name"], "quota_bytes": quota}
+        if op == "quota.check":
+            # usage vs quota per bucket (reference
+            # command_s3_bucket_quota_check.go; enforcement itself is
+            # live in the gateway's write path, so this reports)
+            from seaweedfs_tpu_torch.utils.httpd import HttpError as _HErr
+            report = []
+            try:
+                buckets = fsc.ls("/buckets")
+            except (NotADirectoryError, _HErr):
+                buckets = []  # no bucket ever created: /buckets absent
+            for be in buckets:
+                name = be["FullPath"].rsplit("/", 1)[-1]
+                if name.startswith(".") or not be.get("IsDirectory"):
+                    continue
+                out = http_json(
+                    "GET", f"http://{fsc.filer_url}/__api/entry"
+                           f"?path=/buckets/{name}")
+                ext = out["entry"].get("extended") or {}
+                q = ext.get("quota_bytes")
+                if isinstance(q, dict):  # bytes-valued xattr encoding
+                    q = bytes.fromhex(q["__bytes__"]).decode()
+                quota = int(q) if q else 0
+                _files, used = fsc.du(f"/buckets/{name}")
+                report.append({"bucket": name, "quota_bytes": quota,
+                               "used_bytes": used,
+                               "over": bool(quota) and used > quota})
+            return {"buckets": report}
+        if op == "list":
+            try:
+                return [e["FullPath"].rsplit("/", 1)[-1]
+                        for e in fsc.ls("/buckets")]
+            except NotADirectoryError:
+                return []
+        if op == "create":
+            fsc.mkdir(f"/buckets/{flags['name']}")
+            return {"created": flags["name"]}
+        if op == "delete":
+            fsc.rm(f"/buckets/{flags['name']}", recursive=True)
+            # drop the bucket's collection so volumes are reclaimed
+            try:
+                http_json("POST", f"http://{sh.master_url}/col/delete"
+                                  f"?collection={flags['name']}")
+            except Exception:
+                pass
+            return {"deleted": flags["name"]}
+        raise ValueError(f"unknown s3.bucket command {op!r}")
     if cmd == "volume.fix.replication":
         return sh.volume_fix_replication(apply=apply)
     if cmd == "volume.balance":

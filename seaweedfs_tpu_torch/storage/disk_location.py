@@ -11,7 +11,7 @@ from typing import Optional
 
 from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import (
     EcVolume, EcVolumeShard)
-from seaweedfs_tpu_torch.storage.volume import Volume, load_volume_info
+from seaweedfs_tpu_torch.storage.volume import Volume
 
 _DAT_RE = re.compile(r"^(?:(?P<col>.+)_)?(?P<vid>\d+)\.dat$")
 _EC_RE = re.compile(r"^(?:(?P<col>.+)_)?(?P<vid>\d+)\.ec(?P<shard>\d{2})$")
@@ -41,8 +41,8 @@ class DiskLocation:
                     # the remote tier (reference volume_tier.go)
                     m = _DAT_RE.match(name[:-4] + ".dat")
                     if m:
-                        # Volume() raises NotImplementedError for it: the
-                        # S3 backend is not ported yet
+                        from seaweedfs_tpu_torch.storage.backend import \
+                            load_volume_info
                         base_path = os.path.join(self.directory, name[:-4])
                         if os.path.exists(base_path + ".dat") or \
                                 "remote" not in load_volume_info(base_path):

@@ -9,15 +9,12 @@ rewrites live needles into a fresh pair of files and bumps the superblock's
 compaction revision. The files are byte-identical to the JAX package's
 for the same sequence of writes, deletes and compactions.
 
-Not ported: the cloud tier (tier_to / untier and volumes whose .dat lives
-on a remote tier). They need the S3 backend (storage/backend.py), which
-comes with the cloud-tier slice of ROADMAP.md queue 1; until then they
-raise NotImplementedError.
+The cloud tier (tier_to / untier, and volumes whose .dat lives on a
+remote tier) runs through storage/backend.py, as in the JAX package.
 """
 
 from __future__ import annotations
 
-import json
 import os
 import struct
 import threading
@@ -31,7 +28,6 @@ from seaweedfs_tpu_torch.storage.needle import (CURRENT_VERSION, Needle,
 from seaweedfs_tpu_torch.storage.needle_map import CompactMap
 from seaweedfs_tpu_torch.storage import idx as idxmod
 from seaweedfs_tpu_torch.storage.super_block import ReplicaPlacement, SuperBlock, TTL
-from seaweedfs_tpu_torch.utils.unported import CLOUD_TIER_SLICE, not_ported
 
 
 class NotFoundError(Exception):
@@ -96,6 +92,7 @@ class Volume:
         if exists:
             self._load()
         else:
+            self._backend = None
             if needle_map_kind == "sorted":
                 raise ValueError("sorted needle map requires an existing "
                                  "volume (it serves sealed volumes)")
@@ -132,19 +129,24 @@ class Volume:
     # ---- load ----
     def _load(self):
         base = self.file_name()
+        self._backend = None
         if not os.path.exists(base + ".dat"):
             # cloud-tiered: the .dat lives on a remote tier recorded in
             # the .vif sidecar (reference volume_tier.go LoadedVolume)
-            raise not_ported(
-                f"volume {self.id} is cloud-tiered: reading it needs the S3 "
-                "backend, which", CLOUD_TIER_SLICE)
-        self._dat = open(base + ".dat", "r+b")
-        self._dat.seek(0)
-        head = self._dat.read(super_block_probe_len())
-        if "remote" in load_volume_info(base):
-            # tiered with keep_local: the remote copy would silently
-            # go stale if this replica kept accepting writes
+            from seaweedfs_tpu_torch.storage.backend import open_backend_for_volume
+            self._backend = open_backend_for_volume(base)
+            self._dat = None
             self.read_only = True
+            head = self._backend.read_at(0, super_block_probe_len())
+        else:
+            self._dat = open(base + ".dat", "r+b")
+            self._dat.seek(0)
+            head = self._dat.read(super_block_probe_len())
+            from seaweedfs_tpu_torch.storage.backend import load_volume_info
+            if "remote" in load_volume_info(base):
+                # tiered with keep_local: the remote copy would silently
+                # go stale if this replica kept accepting writes
+                self.read_only = True
         self.super_block = SuperBlock.parse(head)
         # the superblock marker is authoritative for offset width — a
         # caller-supplied width that disagrees would mis-stride the .idx
@@ -308,7 +310,8 @@ class Volume:
             off_units, size = nv
             if not t.size_is_valid(size):
                 raise DeletedError(f"needle {needle_id:x} deleted")
-            if self.version == 1 or size <= 0:
+            if self._backend is not None or self.version == 1 \
+                    or size <= 0:
                 return None
             actual_off = t.offset_to_actual(off_units)
             # pending buffered appends are invisible to the raw fd
@@ -365,6 +368,8 @@ class Volume:
         self.write_needle(n)
 
     def _read_at(self, offset: int, length: int) -> bytes:
+        if self._backend is not None:
+            return self._backend.read_at(offset, length)
         self._dat.seek(offset)
         return self._dat.read(length)
 
@@ -407,30 +412,113 @@ class Volume:
         # lands a concurrent read at EOF (observed as empty-buffer
         # parse failures under benchmark load)
         with self._lock:
+            if self._backend is not None:
+                return self._backend.size()
             self._dat.seek(0, os.SEEK_END)
             return self._dat.tell()
 
     @property
     def is_tiered(self) -> bool:
-        """Always False here: no volume of this package lives on a
-        remote tier (see tier_to)."""
-        return False
+        return self._backend is not None
 
     # ---- cloud tier (reference volume_tier.go, volume_grpc_tier_*.go) --
     def tier_to(self, endpoint: str, bucket: str,
                 keep_local: bool = False,
                 key: Optional[str] = None) -> dict:
-        """Seal and move the .dat to an S3-compatible tier (the JAX
-        package's Volume.tier_to). Not ported: it needs the S3 backend
-        of the cloud-tier slice."""
-        raise not_ported("Volume.tier_to needs the S3 backend, which",
-                         CLOUD_TIER_SLICE)
+        """Seal and move the .dat to an S3-compatible tier; keep serving
+        reads through it. ``key`` overrides the object key — replicas of
+        the same volume MUST use distinct keys (they compact
+        independently, so their .dat files need not be byte-identical;
+        a shared key would let one replica's upload invalidate
+        another's verified copy)."""
+        from seaweedfs_tpu_torch.storage.backend import tier_volume_to_s3
+        with self._lock:
+            if self._backend is not None:
+                raise ValueError(f"volume {self.id} is already tiered")
+            if self.is_compacting:
+                # tiering closes/replaces the .dat the copy phase is
+                # reading from
+                raise RuntimeError(
+                    f"volume {self.id} is compacting; retry later")
+            prev_read_only = self.read_only
+            self.read_only = True
+            self.sync()
+            self._dat.close()
+            try:
+                info = tier_volume_to_s3(self.file_name(), endpoint,
+                                         bucket, keep_local=keep_local,
+                                         key=key)
+            except BaseException:
+                # a failed upload/verify leaves the local .dat intact
+                # (tier_volume_to_s3 only removes it post-verify) —
+                # reopen it so a transient tier-endpoint outage never
+                # turns a healthy local volume unreadable
+                self._dat = open(self.file_name() + ".dat", "r+b")
+                self.read_only = prev_read_only
+                raise
+            if keep_local:
+                self._dat = open(self.file_name() + ".dat", "r+b")
+            else:
+                from seaweedfs_tpu_torch.storage.backend import \
+                    open_backend_for_volume
+                self._dat = None
+                self._backend = open_backend_for_volume(self.file_name())
+            return info
 
     def untier(self) -> None:
-        """Pull a tiered .dat back (the JAX package's Volume.untier).
-        Not ported, like tier_to."""
-        raise not_ported("Volume.untier needs the S3 backend, which",
-                         CLOUD_TIER_SLICE)
+        """Pull the .dat back from the tier, verify it against the
+        size + chained crc32c recorded at demotion, then serve locally
+        again (reference volume_grpc_tier_download.go). A failed
+        verify leaves the volume tiered and the remote copy intact —
+        promotion never installs corrupt bytes.
+
+        The download streams to .dat.tmp WITHOUT the volume lock —
+        reads keep serving through the cloud backend while gigabytes
+        come down; the lock is only taken for the verify-passed
+        rename + state swap. .dat.tmp is removed on any failure."""
+        from seaweedfs_tpu_torch.storage.backend import (file_crc32c,
+                                                   load_volume_info,
+                                                   save_volume_info)
+        with self._lock:
+            if self._backend is None:
+                raise ValueError(f"volume {self.id} is not tiered")
+            if self._untiering:
+                raise RuntimeError(
+                    f"volume {self.id} is already untiering")
+            self._untiering = True
+            backend = self._backend
+        base = self.file_name()
+        tmp = base + ".dat.tmp"
+        try:
+            size = backend.size()
+            with open(tmp, "wb") as f:
+                step = 64 * 1024 * 1024
+                for off in range(0, size, step):
+                    f.write(backend.read_at(off, min(step, size - off)))
+            remote = load_volume_info(base).get("remote", {})
+            if "size" in remote and \
+                    os.path.getsize(tmp) != remote["size"]:
+                raise IOError(
+                    f"untier verify: size mismatch on volume {self.id}")
+            if "crc32c" in remote and \
+                    file_crc32c(tmp) != remote["crc32c"]:
+                raise IOError(
+                    f"untier verify: crc mismatch on volume {self.id}")
+            with self._lock:
+                os.rename(tmp, base + ".dat")
+                info = load_volume_info(base)
+                info.pop("remote", None)
+                save_volume_info(base, info)
+                self._backend = None
+                self._dat = open(base + ".dat", "r+b")
+                self.read_only = self.needle_map_kind == "sorted"
+        finally:
+            self._untiering = False
+            if os.path.exists(tmp):
+                try:
+                    os.remove(tmp)
+                except OSError:
+                    pass
 
     def file_count(self) -> int:
         return len(self.nm)
@@ -458,6 +546,9 @@ class Volume:
         that land during the copy are replayed as a tail delta inside
         the brief commit lock (the reference's makeupDiff)."""
         with self._lock:
+            if self._backend is not None:
+                raise ValueError(
+                    f"volume {self.id} is cloud-tiered; download it first")
             if self.is_compacting:
                 # two interleaved compactions would truncate each
                 # other's .cpd mid-copy and commit a corrupt volume
@@ -491,7 +582,7 @@ class Volume:
                     self._append_compact_record(dat, idxf, key, size,
                                                 blob)
             with self._lock:
-                if self._dat.closed:
+                if self._dat is None:
                     raise RuntimeError(
                         f"volume {self.id} was closed during compact")
                 # tail delta: anything created/changed/deleted since
@@ -625,8 +716,9 @@ class Volume:
 
     def sync(self) -> None:
         with self._lock:
-            self._dat.flush()
-            os.fsync(self._dat.fileno())
+            if self._dat is not None:
+                self._dat.flush()
+                os.fsync(self._dat.fileno())
             self._idx.flush()
             os.fsync(self._idx.fileno())
 
@@ -636,6 +728,8 @@ class Volume:
         shell command_volume_configure_replication.go): only byte 1 of
         the 8-byte header changes."""
         with self._lock:
+            if self._backend is not None:
+                raise PermissionError("tiered volume is read-only")
             self.super_block.replica_placement = \
                 ReplicaPlacement.parse(replication)
             self._dat.flush()
@@ -657,10 +751,12 @@ class Volume:
     def close(self) -> None:
         with self._lock:
             try:
-                self._dat.flush()
+                if self._dat is not None:
+                    self._dat.flush()
                 self._idx.flush()
             finally:
-                self._dat.close()
+                if self._dat is not None:
+                    self._dat.close()
                 self._idx.close()
                 self._close_nm()
 
@@ -680,16 +776,6 @@ class Volume:
         if os.path.isdir(base + ".ldb"):
             import shutil
             shutil.rmtree(base + ".ldb", ignore_errors=True)
-
-
-def load_volume_info(base_path: str) -> dict:
-    """The .vif sidecar as a dict ({} when absent); the JAX package reads
-    it through storage/backend.load_volume_info."""
-    path = base_path + ".vif"
-    if not os.path.exists(path):
-        return {}
-    with open(path) as f:
-        return json.load(f)
 
 
 def super_block_probe_len() -> int:

@@ -4,22 +4,23 @@ What needs one of them raises NotImplementedError where it is reached,
 before any socket is bound, and names the slice it comes with. Nothing of
 the port quietly does less in its place.
 
-Where nothing of the port is reached, the error comes from elsewhere: the
-filer's gRPC plane serves no S3 ``Configure`` service (it needs
-gateway/iam_server.py and pb/{s3,iam}_pb2.py of the gateway slice), so a
-call to it gets ``UNIMPLEMENTED`` from gRPC itself.
+What is left: the wire-protocol filer stores but etcd and ``remote``
+(FILER_STORES_SLICE), and the rest of the gateway slice (GATEWAY_SLICE):
+``mount/``, ``mq/``, ``replication/``, the Azure remote-storage client
+and ``notification/``'s external queues. The cloud tier, the S3 / IAM /
+WebDAV / FTP gateways, the S3-dialect remote client and the ``remote``
+filer store are ported.
 """
 
 from __future__ import annotations
 
-CLOUD_TIER_SLICE = ("the cloud-tier slice of ROADMAP.md queue 1 "
-                    "(storage/backend.py)")
 FILER_STORES_SLICE = ("the filer-stores slice of ROADMAP.md queue 1 "
                       "(filer/{redis,mysql,postgres,mongodb,cassandra,"
-                      "elastic,remote}_store.py)")
-GATEWAY_SLICE = ("the gateway slice of ROADMAP.md queue 1 (gateway/, "
-                 "mount/, mq/, replication/, remote_storage/'s cloud "
-                 "clients, notification/'s external queues)")
+                      "elastic}_store.py)")
+GATEWAY_SLICE = ("the rest of the gateway slice of ROADMAP.md queue 1 "
+                 "(mount/, mq/, replication/, "
+                 "remote_storage/azure_client.py, notification/'s "
+                 "external queues)")
 
 
 def not_ported(what: str, slice_: str) -> NotImplementedError:

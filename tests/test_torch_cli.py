@@ -172,15 +172,13 @@ def test_same_subcommands_as_jax(capsys):
     (["filer", "-store", "mongodb"], "filer-stores"),
     (["filer.meta.tail"], "gateway"),
     (["filer", "-mq"], "gateway"),
-    (["s3"], "gateway"), (["webdav"], "gateway"), (["ftp"], "gateway"),
-    (["iam"], "gateway"), (["mount", "/mnt/x"], "gateway"),
-    (["fuse", "/mnt/x"], "gateway"), (["server", "-s3", "-device", "cpu"],
-                                      "gateway"),
+    (["mount", "/mnt/x"], "gateway"),
+    (["fuse", "/mnt/x"], "gateway"),
     (["filer.sync", "-a", "x", "-b", "y"], "gateway"),
     (["filer.replicate"], "gateway"), (["filer.backup"], "gateway"),
     (["filer.remote.sync", "-dir", "/m"], "gateway"),
     (["filer.remote.gateway", "-remote", "r"], "gateway"),
-    (["filer", "-ftp"], "gateway"), (["filer.meta.backup"], "gateway"),
+    (["filer.meta.backup"], "gateway"),
 ])
 def test_what_is_not_ported_raises_before_binding(argv, slice_, monkeypatch):
     from seaweedfs_tpu_torch.server import filer_server, volume_server

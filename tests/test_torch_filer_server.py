@@ -454,7 +454,7 @@ def test_repl_fs_commands_and_volume_fsck(tmp_path, capsys):
 @pytest.mark.parametrize("kw,slice_", [
     ({"store": "redis"}, "filer-stores slice"),
     ({"store": "mysql"}, "filer-stores slice"),
-    ({"store": "remote", "store_dir": "127.0.0.1:8888"},
+    ({"store": "postgres", "store_dir": "127.0.0.1:5432"},
      "filer-stores slice")])
 def test_unported_filer_options_raise_before_binding(kw, slice_,
                                                      monkeypatch):
@@ -467,9 +467,13 @@ def test_unported_filer_options_raise_before_binding(kw, slice_,
 
 
 def test_remote_routes_answer_501_for_cloud_clients(tmp_path):
-    """/__api/remote/* work over a local remote and answer 501, naming
-    the gateway slice, where they reach a cloud client."""
+    """/__api/remote/* work over a local remote and over an S3 remote
+    (the port's own gateway on the same filer), and answer 501, naming
+    the rest of the gateway slice, where they reach the Azure client."""
+    from seaweedfs_tpu_torch.gateway.s3_server import S3Server
     st = _Stack(PORT, tmp_path, store="memory")
+    gw = S3Server(st.filer)
+    gw.start()
     try:
         root = tmp_path / "remote"
         root.mkdir()
@@ -481,17 +485,34 @@ def test_remote_routes_answer_501_for_cloud_clients(tmp_path):
         assert st.json("POST", "/__api/remote/pull",
                        {"dir": "/rm"}) == {"pulled": 1}
         assert st.call("GET", "/rm/f.txt")[1] == b"remote bytes"
+        for bucket, key, body in (("rb", "x/one.bin", b"1" * 3000),
+                                  ("rb", "two.txt", b"two"),
+                                  ("other", "o.txt", b"o")):
+            httpd.http_call("PUT", f"http://{gw.url}/{bucket}")
+            assert httpd.http_call("PUT", f"http://{gw.url}/{bucket}/{key}",
+                                   body=body)[0] == 200
         st.json("POST", "/__api/remote/configure",
                 {"name": "cloud", "type": "s3", "endpoint":
-                 "http://127.0.0.1:1", "bucket": "b"})
+                 f"http://{gw.url}", "bucket": "rb"})
         st.json("POST", "/__api/remote/mount",
                 {"dir": "/cm", "remote_name": "cloud"})
-        for op, body in (("pull", {"dir": "/cm"}),
-                         ("mount_buckets", {"remote_name": "cloud"})):
-            status, out, _ = st.call("POST", f"/__api/remote/{op}",
-                                     json_body=body)
-            assert status == 501 and b"gateway slice" in out
+        assert st.json("POST", "/__api/remote/pull",
+                       {"dir": "/cm"}) == {"pulled": 2}
+        assert st.call("GET", "/cm/x/one.bin")[1] == b"1" * 3000
+        out = st.json("POST", "/__api/remote/mount_buckets",
+                      {"remote_name": "cloud"})
+        assert sorted(out["mounted"]) == ["other", "rb"]
+        st.json("POST", "/__api/remote/configure",
+                {"name": "blob", "type": "azure", "endpoint":
+                 "http://127.0.0.1:1", "bucket": "b", "access_key": "a",
+                 "secret_key": "s"})
+        st.json("POST", "/__api/remote/mount",
+                {"dir": "/am", "remote_name": "blob"})
+        status, out, _ = st.call("POST", "/__api/remote/pull",
+                                 json_body={"dir": "/am"})
+        assert status == 501 and b"gateway slice" in out
     finally:
+        gw.stop()
         st.stop()
 
 

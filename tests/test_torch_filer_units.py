@@ -7,7 +7,8 @@ directory written by each package opened by the other, the reader and
 chunk caches, the cipher, the ledger auto-capper, the notification queues
 and remote mounts over a local remote. Each case runs the same script on
 both packages and compares what they return; the unported stores, queues
-and remote clients raise NotImplementedError naming their slice.
+and the Azure remote client raise NotImplementedError naming their
+slice.
 (ref tests/test_filer.py, test_filer_depth.py, test_metalog_persist.py,
 test_reader_cache.py, test_shard_scaleout.py's autocap cases,
 test_cipher_ftp.py's cipher cases, test_remote_storage.py.)
@@ -436,7 +437,7 @@ def test_lsm_directory_opens_in_either_package(tmp_path):
     ("redis", "filer-stores slice"), ("mysql", "filer-stores slice"),
     ("postgres2", "filer-stores slice"), ("mongodb", "filer-stores slice"),
     ("cassandra", "filer-stores slice"), ("elastic7", "filer-stores slice"),
-    ("remote", "filer-stores slice")])
+    ("redis2", "filer-stores slice")])
 def test_unported_stores_raise_naming_their_slice(name, slice_):
     with pytest.raises(NotImplementedError, match=slice_):
         p_store.make_store(name, host="127.0.0.1", port=1)
@@ -630,8 +631,9 @@ def test_notification_queues_and_attach_to_filer(tmp_path, monkeypatch):
 def test_remote_mount_over_a_local_remote(tmp_path):
     """remote.configure / mount / meta.sync / cache / uncache / write-back
     over a "local" remote, the same in both packages; the persisted
-    configuration reads across packages; the cloud clients raise naming
-    the gateway slice in the port."""
+    configuration reads across packages; the S3-dialect types make the
+    same S3Remote in both packages, and the Azure client raises naming
+    the rest of the gateway slice in the port."""
     def run(pkg, name):
         root = tmp_path / f"remote_{name}"
         (root / "sub").mkdir(parents=True)
@@ -677,8 +679,16 @@ def test_remote_mount_over_a_local_remote(tmp_path):
         p_filer.Filer(ps)).list_confs().items()} == {
         k: v.to_public_dict() for k, v in j_remote_mount.RemoteMounts(
             j_filer.Filer(js)).list_confs().items()}
-    for kind in ("s3", "gcs", "b2", "wasabi", "azure"):
-        with pytest.raises(NotImplementedError, match="gateway slice"):
-            p_remote.make_remote_client(p_remote.RemoteConf(
-                name="x", type=kind, endpoint="http://127.0.0.1:1",
-                bucket="b", access_key="a", secret_key="s"))
+    for kind in ("s3", "gcs", "b2", "wasabi"):
+        kw = dict(name="x", type=kind, endpoint="http://127.0.0.1:1",
+                  bucket="b", access_key="a", secret_key="s")
+        got = p_remote.make_remote_client(p_remote.RemoteConf(**kw))
+        want = j_remote.make_remote_client(j_remote.RemoteConf(**kw))
+        assert type(got).__name__ == type(want).__name__ == "S3Remote"
+        assert (got.endpoint, got.bucket, got.host) == \
+            (want.endpoint, want.bucket, want.host)
+        assert vars(got.signer) == vars(want.signer)
+    with pytest.raises(NotImplementedError, match="gateway slice"):
+        p_remote.make_remote_client(p_remote.RemoteConf(
+            name="x", type="azure", endpoint="http://127.0.0.1:1",
+            bucket="b", access_key="a", secret_key="s"))

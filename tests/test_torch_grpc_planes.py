@@ -13,8 +13,8 @@ package's:
   every loss pattern of up to 4 shards, two generates at once;
 - each package's clients against the other package's servers;
 - the incremental `weed backup` over VolumeTailSender;
-- the filer's S3 Configure service, which the port does not serve
-  (UNIMPLEMENTED).
+- the filer's S3 Configure service, storing what the JAX package's
+  IdentityStore writes.
 
 The volume servers run with device="cpu" (the kernels' plain versions);
 each RPC, stream and wait carries its own timeout.
@@ -24,6 +24,7 @@ test_backup_volume_incremental.)"""
 import concurrent.futures
 import hashlib
 import itertools
+import json
 import os
 import shutil
 import threading
@@ -381,16 +382,38 @@ def test_filer_grpc_subscribe_metadata_stream(filer_cluster):
 
 
 def test_filer_s3_configure_is_unimplemented(filer_cluster):
-    """The filer's S3 Configure service comes with the gateway slice: the
-    port's gRPC server does not register it, so gRPC answers
-    UNIMPLEMENTED (the JAX filer serves it)."""
+    """The filer's S3 Configure service, UNIMPLEMENTED on the port's
+    filer until the gateway was ported, is registered beside the filer
+    plane on the same gRPC server: it stores the identity file the JAX
+    package's IdentityStore writes for the same configuration, and a
+    payload that is neither proto nor identity JSON is
+    INVALID_ARGUMENT."""
+    from seaweedfs_tpu.filer.filer import Filer as JFiler
+    from seaweedfs_tpu.filer.filerstore import MemoryStore as JMemoryStore
+    from seaweedfs_tpu.gateway.iam_server import IdentityStore as JIds
+    from seaweedfs_tpu_torch.gateway.iam_server import IdentityStore
+    from seaweedfs_tpu_torch.pb import s3_pb2
     master, vs, fs, client = filer_cluster
     fn = client.channel.unary_unary(
         "/weedtpu_s3_pb.SeaweedTpuS3/Configure",
         request_serializer=lambda b: b, response_deserializer=lambda b: b)
+    conf = {"identities": [{"name": "ops", "credentials": [
+        {"accessKey": "AKOPS", "secretKey": "sk/ops"}],
+        "actions": ["Admin"]}]}
+    req = s3_pb2.S3ConfigureRequest(
+        s3_configuration_file_content=json.dumps(conf).encode())
+    assert fn(req.SerializeToString(), timeout=10) == b""
+    ref = JFiler(JMemoryStore())
+    JIds(ref).save(conf)
+    assert fs.filer.find_entry("/etc/iam/identity.json").content == \
+        ref.find_entry("/etc/iam/identity.json").content
+    assert IdentityStore(fs.filer).find_by_access_key("AKOPS")["name"] \
+        == "ops"
     with pytest.raises(grpc.RpcError) as ei:
-        fn(b'{"identities": []}', timeout=10)
-    assert ei.value.code() == grpc.StatusCode.UNIMPLEMENTED
+        fn(s3_pb2.S3ConfigureRequest(
+            s3_configuration_file_content=b"[1]").SerializeToString(),
+            timeout=10)
+    assert ei.value.code() == grpc.StatusCode.INVALID_ARGUMENT
 
 
 # ---------------- the same volume on both packages ----------------

@@ -85,7 +85,14 @@ def test_port_and_smoke_never_import_jax_or_reference():
                 "pb/filer_pb2.py", "pb/etcdkv_pb2.py", "utils/tls.py",
                 "query/json_query.py", "server/master_grpc.py",
                 "server/volume_grpc.py", "server/filer_grpc.py",
-                "filer/etcd_store.py"):
+                "filer/etcd_store.py",
+                # the cloud tier and the gateways
+                "storage/backend.py", "utils/sigv4.py",
+                "remote_storage/s3_client.py", "pb/s3_pb2.py",
+                "pb/iam_pb2.py", "gateway/__init__.py",
+                "gateway/iam_server.py", "gateway/s3_server.py",
+                "filer/remote_store.py", "gateway/webdav_server.py",
+                "gateway/ftp_server.py"):
         assert PORT / rel in files, rel
     bad = {str(f.relative_to(REPO)): [n for n in _imported_modules(f)
                                       if _forbidden(n)]
@@ -393,8 +400,8 @@ def test_volume_command_raises_without_cuda_before_binding(no_cuda,
 
 
 @pytest.mark.parametrize("argv,slice_", [
-    (["filer", "-ftp"], "the gateway slice"),
-    (["s3"], "the gateway slice"),
+    (["filer", "-ftp", "-mq"], "the gateway slice"),
+    (["fuse", "/mnt/weed"], "the gateway slice"),
     (["mount", "/mnt/weed"], "the gateway slice"),
 ])
 def test_filer_gateways_and_mount_raise_naming_their_slice(argv, slice_,
@@ -412,18 +419,16 @@ def test_filer_gateways_and_mount_raise_naming_their_slice(argv, slice_,
 
 
 @pytest.mark.parametrize("line", ["fs.meta.tail", "fs.meta.tail -n 4",
-                                  "remote.configure -name r",
                                   "mount.configure -collectionCapacity 1",
-                                  "s3.configure -user u",
-                                  "s3.bucket.list", "remote.status",
                                   "mq.topic.list"])
 def test_repl_filer_commands_raise(line):
     """What the REPL's filer families reach and the port does not have
-    yet (replication/sync.py behind fs.meta.tail, the remote-storage
-    clients, the S3 gateway, the mq broker, mount's admin plane) raises
-    NotImplementedError naming the gateway slice; nothing is sent
-    anywhere. The fs.* family and volume.fsck run against the port's
-    filer (tests/test_torch_filer_server.py)."""
+    yet (replication/sync.py behind fs.meta.tail, the mq broker, mount's
+    admin plane) raises NotImplementedError naming the rest of the
+    gateway slice; nothing is sent anywhere. The fs.* family and
+    volume.fsck run against the port's filer
+    (tests/test_torch_filer_server.py), the s3.* and remote.* families
+    too (tests/test_torch_gateway_cross.py)."""
     from seaweedfs_tpu_torch.shell.commands import ShellContext
     from seaweedfs_tpu_torch.shell.repl import run_command
     with pytest.raises(NotImplementedError, match="gateway slice"):

@@ -199,16 +199,100 @@ def test_wide_offsets_past_32gb_and_superblock_width(tmp_path):
 
 
 def test_tiering_is_not_ported_and_says_so(tmp_path):
-    vol = tvolume.Volume(str(tmp_path), "", 8)
-    assert vol.is_tiered is False
-    for call in (lambda: vol.tier_to("localhost:1", "b"), vol.untier):
-        with pytest.raises(NotImplementedError, match="S3 backend"):
-            call()
-    vol.close()
-    # a .vif-only (cloud-tiered) volume cannot be opened here
-    open(tmp_path / "9.vif", "w").write('{"remote": {"backend": "s3"}}')
-    with pytest.raises(NotImplementedError):
-        tvolume.Volume(str(tmp_path), "", 9)
+    """The cloud tier, once NotImplementedError here, is ported: both
+    packages tier the same volume to an in-test S3 endpoint, write the
+    same .vif, read every needle through it, open each other's .vif-only
+    volume (and a DiskLocation scan finds it), and untier to the same
+    .dat. A volume is refused a second tier_to in both, and an untier of
+    a local one."""
+    import http.server
+    import json as _json
+    objects = {}
+
+    class S3(http.server.BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_PUT(self):
+            n = int(self.headers.get("Content-Length", 0))
+            objects[self.path] = self.rfile.read(n)
+            self.send_response(200)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+        def _body(self, head):
+            data = objects.get(self.path)
+            if data is None:
+                self.send_response(404)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                return
+            rng = self.headers.get("Range")
+            if rng:
+                lo, hi = (int(x) for x in rng[6:].split("-"))
+                data = data[lo:hi + 1]
+                self.send_response(206)
+            else:
+                self.send_response(200)
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            if not head:
+                self.wfile.write(data)
+
+        def do_GET(self):
+            self._body(False)
+
+        def do_HEAD(self):
+            self._body(True)
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), S3)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    endpoint = f"http://127.0.0.1:{srv.server_address[1]}"
+    rng = np.random.default_rng(8)
+    payloads = {k: rng.bytes(int(rng.integers(1, 5000)))
+                for k in range(1, 21)}
+    out = {}
+    try:
+        for name, mod, nmod in (("p", tvolume, tneedle),
+                                ("j", jvolume, jneedle)):
+            d = tmp_path / name
+            d.mkdir()
+            vol = mod.Volume(str(d), "", 8)
+            assert vol.is_tiered is False
+            with pytest.raises(ValueError):
+                vol.untier()
+            for k, data in payloads.items():
+                vol.write_needle(nmod.Needle(
+                    id=k, cookie=k, data=data,
+                    append_at_ns=1_700_000_000_000_000_000 + k))
+            dat = (d / "8.dat").read_bytes()
+            info = vol.tier_to(endpoint, "tier", key=f"{name}_8.dat")
+            assert vol.is_tiered and not (d / "8.dat").exists()
+            with pytest.raises(ValueError):
+                vol.tier_to(endpoint, "tier", key=f"{name}_8.dat")
+            reads = [vol.read_needle(k).data for k in payloads]
+            vol.close()
+            out[name] = (info["remote"]["size"], info["remote"]["crc32c"],
+                         dat, reads)
+        assert out["p"][:3] == out["j"][:3]
+        assert out["p"][3] == out["j"][3] == list(payloads.values())
+        for name, reader in (("j", tvolume), ("p", jvolume)):
+            d = tmp_path / name
+            vif = _json.loads((d / "8.vif").read_text())
+            assert vif["remote"]["key"] == f"{name}_8.dat"
+            vol = reader.Volume(str(d), "", 8)
+            assert vol.is_tiered and vol.read_only
+            assert [vol.read_needle(k).data for k in payloads] == \
+                list(payloads.values())
+            vol.close()
+        loc = DiskLocation(str(tmp_path / "j"))
+        loc.load_existing_volumes()
+        assert loc.volumes[8].is_tiered
+        loc.volumes[8].untier()
+        assert (tmp_path / "j" / "8.dat").read_bytes() == out["j"][2]
+        loc.volumes[8].close()
+    finally:
+        srv.shutdown()
 
 
 # ----------------------------------------------------------- group commit

@@ -474,9 +474,10 @@ def test_vacuum_invalidation_via_server(tmp_path):
 
 def test_unported_planes_raise(tmp_path):
     """The gRPC plane is ported: grpc_port=0 serves it beside the HTTP
-    plane and advertises its port in the heartbeat. The cloud tier is
-    not: a cloud-tier move answers the volume's NotImplementedError as an
-    error response."""
+    plane and advertises its port in the heartbeat. So is the cloud tier,
+    which reaches its endpoint now: a demotion to an endpoint where
+    nothing listens answers 409 with the connection error, as the JAX
+    server does, and leaves the volume local and writable."""
     from seaweedfs_tpu_torch.pb import volume_server_pb2 as tvpb
     from seaweedfs_tpu_torch.server.volume_grpc import GrpcVolumeClient
     master = MasterServer()
@@ -500,9 +501,13 @@ def test_unported_planes_raise(tmp_path):
         assert [v.id for v in st.volumes] == [3]
         status, body, _ = http_call(
             "POST", f"http://{vs.url}/admin/tier/demote",
-            json_body={"volume_id": 3, "endpoint": "127.0.0.1:1",
+            json_body={"volume_id": 3, "endpoint": "http://127.0.0.1:1",
                        "bucket": "b"})
-        assert status == 409 and b"S3 backend" in body
+        assert status == 409 and b"S3 backend" not in body
+        vol = vs.store.find_volume(3)
+        assert not vol.is_tiered and not vol.read_only
+        assert http_json("GET", f"http://{vs.url}/admin/tier"
+                         )["stats"]["failed"] == 1
     finally:
         vs.stop(graceful=False)
         master.stop()
