@@ -9,7 +9,15 @@
 Phases, each printing one JSON line:
   1. device      card name and `nvidia-smi` name / power limit; then the
                  `packages` line: whether grpc, google.protobuf and
-                 cryptography import on this machine, and their versions
+                 cryptography import on this machine, and their versions;
+                 then `sim`: the port's macro simulator on the host, in this
+                 process (no kernel runs: its one coder, LrcCoder, is a host
+                 coder in both packages): all ten incidents at 100 actors,
+                 seed 0, every invariant passing; rolling_restart at seed 42
+                 twice with equal event-log hashes; all ten at 16 actors,
+                 each hash equal to the reference's (SIM_REFERENCE_HASHES,
+                 held against the JAX package by tests/test_torch_sim.py);
+                 per incident passed, log_hash, events and wall seconds
   2. build       compiles csrc/gf_apply.cu and csrc/mxu_apply.cu (nvcc,
                  sm_90a), csrc/crc32c.cpp and csrc/rs_cpu.cpp (g++, the host
                  coder) from this checkout, in parallel; prints the ptxas
@@ -245,7 +253,31 @@ Phases, each printing one JSON line:
                  servers' reconstructs, above 0 over both); after the
                  rebuild every object once more; last the bucket deleted
                  through S3 and its chunks counted by the gateway's GC.
-                 The route's K1 launches count under the path key `s3`
+                 The route's K1 launches count under the path key `s3`.
+                 The stores route in the same process layout (the `stores`
+                 line), after the tree's `ec.encode` and before the kill:
+                 the port's servers of the seven wire families (redis,
+                 mysql, postgres, mongodb, cassandra, elastic, etcd) in one
+                 process of their own (`db-child`), and for each a `...
+                 filer -store <family> -dir 127.0.0.1:<port>` against the
+                 phase's master, /stores/ sent to the collection `stores`
+                 on it, `filer.copy` of a seeded tree of 256 files of 1-256
+                 KiB in 4 directories and one of 8-12 MiB (three chunks),
+                 every file GET through its filer sha256-equal, the filer
+                 SIGKILLed and restarted on the same database (its time to
+                 a first answer), fs.du and the listing equal to the tree;
+                 then `ec.encode -collection stores` at once (K1 on its
+                 source). Each volume is encoded
+                 while younger than 120 s: the master's tiering autopilot
+                 moves an older volume by itself once `ec.encode` seals it
+                 (hot to EC when its reads have gone quiet, EC back to hot
+                 when they have not), and the phase fails by name if it
+                 moved one being encoded. The stores volume loses shards
+                 with the killed server and is rebuilt with the others (K1
+                 on the rebuilder); after the rebuild every file of every
+                 family GET again through its filer, sha256-equal. Its K1
+                 launches count under the path key `stores` and equal the
+                 stores volume's encode and rebuild batches
 Then the memory line, the kernel summary line, the `nvidia-smi` line, and
 the result line {"ok": true, "device": {...}} last. Each path phase is
 driven with every kernel entry's launch counter set to 0 just before it
@@ -282,6 +314,33 @@ K1_BATCH_COUNTERPART = ("seaweedfs_tpu/ops/rs_mesh.py:46 batch_encode_fn, "
 BATCH_LOSSES = ((3,), (12,), (0, 7), (10, 13), (2, 9, 10), (0, 3, 7, 9),
                 (10, 11, 12, 13), (0, 5, 11, 13))
 BATCH_ENCODE_SHAPE = (64, 10, 1 << 20)  # volumes, k, columns (config 4)
+
+
+# run_incident(name, seed=0, n_actors=16)["log_hash"] of the reference
+# package (seaweedfs_tpu/sim); tests/test_torch_sim.py recomputes it there
+SIM_REFERENCE_HASHES = {
+    "az_loss":
+        "7d97cbf9e6d1a28171cb0ef2b66eeed1f9f7d1cc34ee466edc530a219a6eb6ac",
+    "diurnal_sweep":
+        "559bf54ca49524a866fc621be1370b4ec9bbc0fadff936b259b0c42277c812e6",
+    "ec_single_shard_loss":
+        "634b1dfa9cacd46efcbce08685886d124deb90e609ae0a5a562103fbfe4b30ad",
+    "herd_repair":
+        "c57e029cf864bfa0c509c6a9ceaa853ea0d919470fecb9c3ada8ebff6f4c0a4f",
+    "hot_shard_migration":
+        "622da30fc1f8b9301b2213183905c2fe6cd6720461747aad23571189c60d7c55",
+    "master_failover_mid_repair":
+        "423e6009d96935ff1b55cb40af3c9e2efa3b091f90af13f3628c13f4f026f0c9",
+    "master_failover_mid_write":
+        "69f14ba5ea33390766b08d4b6bfed2dc2aefa6f7f639d136e087dc1ac40d5601",
+    "partition_heal_mid_repair":
+        "8b1a979f202de58f3ae290ea9d6b378531d49fe300b1bb94ea16320ed809ff27",
+    "rolling_restart":
+        "f77ab22e342e86b0e33196d83ddc49d122a6bbd3916ea9804890c26fd7c7e85f",
+    "tenant_flood":
+        "8fc8af3187fd5166251f0964681617fd3a9d812e9ff7755fcef5122845c422bf",
+}
+SIM_ACTORS = 100            # the reference's acceptance size
 
 
 def emit(phase: str, **fields) -> None:
@@ -407,6 +466,52 @@ def phase_build() -> None:
          ptxas=_ptxas_lines(gf_ptxas), mxu_ptxas=_ptxas_lines(mxu_ptxas),
          mxu_igmma_instructions=tc["IGMMA"],
          mxu_imma_instructions=tc["IMMA"])
+
+
+def phase_sim() -> None:
+    """The port's macro simulator on the host, in this process: every
+    incident at SIM_ACTORS actors, seed 0, with every invariant passing;
+    rolling_restart at seed 42 twice, the two event-log hashes equal; every
+    incident at 16 actors, seed 0, its hash equal to the reference's
+    (SIM_REFERENCE_HASHES). No kernel runs: the one coder the simulator
+    calls, LrcCoder, is a host coder in both packages."""
+    from seaweedfs_tpu_torch.sim.incidents import INCIDENTS, run_incident
+    if sorted(INCIDENTS) != sorted(SIM_REFERENCE_HASHES):
+        raise AssertionError(f"incidents {sorted(INCIDENTS)}")
+    t_all = time.monotonic()
+    matrix = {}
+    for name in sorted(INCIDENTS):
+        t0 = time.monotonic()
+        r = run_incident(name, seed=0, n_actors=SIM_ACTORS)
+        matrix[name] = {"passed": r["passed"], "log_hash": r["log_hash"],
+                        "events": r["events"],
+                        "wall_s": time.monotonic() - t0}
+        if not r["passed"]:
+            failed = [c for c in r["invariants"] if not c["ok"]]
+            raise AssertionError(f"sim {name} at {SIM_ACTORS} actors: "
+                                 f"{failed}")
+    t0 = time.monotonic()
+    twice = [run_incident("rolling_restart", seed=42,
+                          n_actors=SIM_ACTORS)["log_hash"] for _ in range(2)]
+    twice_s = time.monotonic() - t0
+    if twice[0] != twice[1]:
+        raise AssertionError(f"rolling_restart seed 42: hashes {twice}")
+    t0 = time.monotonic()
+    small = {name: run_incident(name, seed=0, n_actors=16)["log_hash"]
+             for name in sorted(INCIDENTS)}
+    small_s = time.monotonic() - t0
+    wrong = {n: h for n, h in small.items() if h != SIM_REFERENCE_HASHES[n]}
+    if wrong:
+        raise AssertionError(f"sim hashes at 16 actors differ from the "
+                             f"reference's: {wrong}")
+    emit("sim", actors=SIM_ACTORS, seed=0, incidents=matrix,
+         seed42_rolling_restart={"log_hash": twice[0], "equal": True,
+                                 "wall_s": twice_s},
+         reference_hashes_16_actors={"equal": True, "incidents": len(small),
+                                     "wall_s": small_s},
+         wall_s=time.monotonic() - t_all,
+         kernels="none: LrcCoder, the simulator's one coder, is a host "
+                 "coder in both packages")
 
 
 def check_matrices(seed: int):
@@ -2865,6 +2970,45 @@ def cli_child(routes_path: str, argv: list[str]) -> int:
     return 0
 
 
+# the stores route's wire families: (module, the in-process server that
+# speaks the family's protocol); the filer's -store name is the key
+STORE_DBS = {
+    "redis": ("redis_store", "MiniRedisServer"),
+    "mysql": ("mysql_store", "MiniMysqlServer"),
+    "postgres": ("postgres_store", "MiniPostgresServer"),
+    "mongodb": ("mongodb_store", "MiniMongoServer"),
+    "cassandra": ("cassandra_store", "MiniCassandraServer"),
+    "elastic": ("elastic_store", "MiniElasticServer"),
+    "etcd": ("etcd_store", "MiniEtcdServer"),
+}
+
+
+def db_child(ports_path: str) -> int:
+    """The entry that the `filer` phase starts the stores route's databases
+    through: the port's servers of the seven wire families (STORE_DBS), in
+    a process of their own as a database is in a deployment. It writes
+    {family: port} into the JSON file `ports_path`, prints it, and serves
+    until SIGTERM."""
+    import importlib
+    servers = {}
+    for family, (module, cls) in STORE_DBS.items():
+        mod = importlib.import_module(f"seaweedfs_tpu_torch.filer.{module}")
+        servers[family] = getattr(mod, cls)().start()
+    ports = {family: srv.port for family, srv in servers.items()}
+    tmp = ports_path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(ports, f)
+    os.replace(tmp, ports_path)
+    print(json.dumps({"db_ports": ports}), flush=True)
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda signum, frame: stop.set())
+    while not stop.wait(0.5):
+        pass
+    for srv in servers.values():
+        srv.stop()
+    return 0
+
+
 GRPC_OFFSET = 10000  # `-grpc` serves a process's gRPC plane on port + this
 
 
@@ -2925,9 +3069,9 @@ def _holds_card(pid: int) -> bool:
 class _CliCluster:
     """The `cli` and `filer` phases' processes: `weed master` processes
     (with -peers when there are several), CLI_SERVERS `weed volume`
-    processes (through volume_child) and `weed filer` processes, their
-    logs under `root`, each volume server's launch counts in a JSON file
-    there."""
+    processes (through volume_child), `weed filer` processes and the
+    stores route's databases (through db_child), their logs under `root`,
+    each volume server's launch counts in a JSON file there."""
 
     def __init__(self, root: str):
         self.root = root
@@ -2938,7 +3082,9 @@ class _CliCluster:
         self.filers: dict[str, subprocess.Popen] = {}
         self.gateways: dict[str, subprocess.Popen] = {}
         self.followers: dict[str, subprocess.Popen] = {}
+        self.dbs: dict[str, subprocess.Popen] = {}
         self.filer_starts = 0
+        self.filer_start_of: dict[str, int] = {}
         self.counted = 0
         self.rack: dict[str, str] = {}
         self.killed: set[str] = set()
@@ -3012,20 +3158,39 @@ class _CliCluster:
         return urls
 
     def start_filer(self, master: str, port: int, store_dir: str,
-                    grpc: bool = False) -> str:
-        """`weed filer -store lsm -dir store_dir` on `port` (again after a
-        kill: the same port, as the master still lists it), with -grpc its
-        gRPC plane on port + GRPC_OFFSET."""
+                    grpc: bool = False, store: str = "lsm") -> str:
+        """`weed filer -store <store> -dir store_dir` on `port` (again after
+        a kill: the same port, as the master still lists it), with -grpc
+        its gRPC plane on port + GRPC_OFFSET. A wire store's store_dir is
+        its database's host:port."""
         url = f"127.0.0.1:{port}"
         self.killed.discard(url)
         self.start_s[url] = time.monotonic()
         self.filer_starts += 1
+        self.filer_start_of[url] = self.filer_starts
         self.filers[url] = self._spawn(
             f"filer_{port}_{self.filer_starts}", [
                 sys.executable, "-m", "seaweedfs_tpu_torch.cli", "filer",
-                "-port", str(port), "-master", master, "-store", "lsm",
+                "-port", str(port), "-master", master, "-store", store,
                 "-dir", store_dir, *(["-grpc"] if grpc else [])])
         return url
+
+    def start_dbs(self) -> dict[str, int]:
+        """The stores route's databases, one process through db_child;
+        returns {family: port} once it has written them."""
+        path = os.path.join(self.root, "db_ports.json")
+        self.start_s["db"] = time.monotonic()
+        self.dbs["db"] = self._spawn("db", [
+            sys.executable, os.path.abspath(__file__), "db-child", path])
+
+        def ports():
+            self.check_running()
+            try:
+                with open(path) as f:
+                    return json.load(f)
+            except (OSError, ValueError):
+                return None
+        return _wait_for(ports, "the databases to start", timeout=180.0)
 
     def start_gateway(self, master: str, filer: str, port: int) -> str:
         """`weed s3 -filer filer -master master` on `port`: the S3 gateway
@@ -3080,7 +3245,8 @@ class _CliCluster:
 
     def check_running(self) -> None:
         for url, p in {**self.masters, **self.servers, **self.filers,
-                       **self.gateways, **self.followers}.items():
+                       **self.gateways, **self.followers,
+                       **self.dbs}.items():
             if url not in self.killed and p.poll() is not None:
                 with open(p.log_path, errors="replace") as f:
                     tail = f.read()[-1500:]
@@ -3189,11 +3355,12 @@ class _CliCluster:
         self.killed.add(url)
 
     def stop(self) -> dict[str, int]:
-        """SIGTERM the gateways, the filers, the volume servers, then the
-        masters (a server's drain announcement needs a master); kill what
-        outlives 60 s. Returns each process's exit code."""
+        """SIGTERM the gateways, the filers, their databases, the volume
+        servers, then the masters (a server's drain announcement needs a
+        master); kill what outlives 60 s. Returns each process's exit
+        code."""
         codes = {}
-        for group in (self.followers, self.gateways, self.filers,
+        for group in (self.followers, self.gateways, self.filers, self.dbs,
                       self.servers, self.masters):
             for p in group.values():
                 if p.poll() is None:
@@ -3777,6 +3944,58 @@ def make_filer_tree(root: str, total_mb: int, seed: int) -> list:
     return files
 
 
+STORES_COLLECTION = "stores"  # the stores route's collection
+STORES_PREFIX = "/stores/"    # each store filer's tree lands under it
+STORES_FILES = 256            # files of 1-256 KiB per family
+STORES_DIRS = 4
+
+
+def make_stores_tree(root: str, seed: int) -> list:
+    """A seeded tree for one store family under `root`: STORES_FILES files
+    of 1-256 KiB (log-uniform sizes) spread over STORES_DIRS directories,
+    and one file of 8-12 MiB (three of the filer's 4 MiB chunks). Returns
+    [(relative path, size, sha256 digest)]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sizes = [int(x) for x in np.exp(rng.uniform(
+        np.log(1 << 10), np.log(256 << 10), STORES_FILES))]
+    sizes.append(int(rng.integers((8 << 20) + 1, (12 << 20) + 1)))
+    files = []
+    for n, size in enumerate(sizes):
+        rel = f"d{n % STORES_DIRS}/f{n:03d}.bin"
+        data = rng.bytes(size)
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(data)
+        files.append((rel, size, hashlib.sha256(data).digest()))
+    return files
+
+
+def stores_listing(filer: str, family: str, files: list) -> int:
+    """The family's tree as its filer lists it: fs.du of /stores/<family>
+    and each directory's names equal to `files`. Returns the entries
+    listed."""
+    from seaweedfs_tpu_torch.shell.fs_commands import FsContext
+    fsc = FsContext(filer)
+    base = f"{STORES_PREFIX}{family}"
+    du = fsc.du(base)
+    if du != (len(files), sum(size for _, size, _ in files)):
+        raise AssertionError(f"stores {family}: du {du}, tree "
+                             f"{len(files)} files")
+    listed = 0
+    for d in range(STORES_DIRS):
+        names = sorted(e["FullPath"].rsplit("/", 1)[1]
+                       for e in fsc.ls(f"{base}/d{d}", limit=1 << 20))
+        want = sorted(rel.split("/", 1)[1] for rel, _, _ in files
+                      if rel.startswith(f"d{d}/"))
+        if names != want:
+            raise AssertionError(f"stores {family}: d{d} lists "
+                                 f"{len(names)} names, the tree {len(want)}")
+        listed += len(names)
+    return listed
+
+
 def filer_gc(cl: "_CliCluster", filer: str) -> dict:
     """The filer's chunk_gc_total by outcome (deleted, retried, abandoned),
     from its /metrics listener, whose address its start-up line names."""
@@ -3784,7 +4003,8 @@ def filer_gc(cl: "_CliCluster", filer: str) -> dict:
 
     from seaweedfs_tpu_torch.utils.httpd import http_call
     port = filer.rsplit(":", 1)[1]
-    with open(os.path.join(cl.root, f"filer_{port}_{cl.filer_starts}.log"),
+    with open(os.path.join(cl.root,
+                           f"filer_{port}_{cl.filer_start_of[filer]}.log"),
               encoding="utf-8", errors="replace") as f:
         metrics = re.search(r"metrics=([\d.]+:\d+)", f.read()).group(1)
     status, body, _ = http_call("GET", f"http://{metrics}/metrics",
@@ -3796,11 +4016,13 @@ def filer_gc(cl: "_CliCluster", filer: str) -> dict:
         body.decode())}
 
 
-def _filer_gets(filer: str, files: list, threads: int = 1):
-    """GET every file of `files` through the filer, as a client that
-    follows redirects does: a 302 is followed to the volume server it
-    names. Every body is checked against its sha256. Returns (wall
-    seconds, per-GET seconds, {route: files}, the paths redirected)."""
+def _filer_gets(filer: str, files: list, threads: int = 1,
+                prefix: str = "/data/tree/"):
+    """GET every file of `files` (paths relative to `prefix`) through the
+    filer, as a client that follows redirects does: a 302 is followed to
+    the volume server it names. Every body is checked against its sha256.
+    Returns (wall seconds, per-GET seconds, {route: files}, the paths
+    redirected)."""
     import urllib.parse
 
     from seaweedfs_tpu_torch.utils.httpd import http_call
@@ -3810,7 +4032,7 @@ def _filer_gets(filer: str, files: list, threads: int = 1):
 
     def get(part):
         for rel, size, digest in part:
-            url = f"http://{filer}/data/tree/{urllib.parse.quote(rel)}"
+            url = f"http://{filer}{prefix}{urllib.parse.quote(rel)}"
             t0 = time.perf_counter()
             status, body, hdrs = http_call("GET", url, timeout=120,
                                            follow_redirects=False)
@@ -4108,7 +4330,12 @@ def filer_phase(work: str, total_mb: int, seed: int,
     the filer, `weed s3` over it: a bucket tiered to the gateway itself
     and back, `s3_mb` MiB of SigV4-signed objects in the bucket `bkt`
     encoded with the tree, degraded S3 GETs at the same SIGKILL, GETs
-    after the rebuild and the bucket deleted (see s3_route)."""
+    after the rebuild and the bucket deleted (see s3_route). Beside them
+    seven filers on the wire stores, one per family, over their databases
+    in a process of their own: ingest, GETs, a restart and the collection
+    `stores` encoded after the tree's encode, lost and rebuilt with the
+    others, every file read back after the rebuild (stores_route,
+    stores_get)."""
     import urllib.parse
 
     from seaweedfs_tpu_torch.storage.erasure_coding import encoder, layout
@@ -4125,11 +4352,23 @@ def filer_phase(work: str, total_mb: int, seed: int,
     objs = make_s3_objects(s3_mb, seed + 23, multipart=S3_MULTIPART)
     cold = make_s3_objects(max(s3_mb // 4, 8), seed + 24)
     s3_bytes = sum(len(d) for _, d, _, _ in objs)
+    stores_root = os.path.join(root, "stores")
+    trees = {family: make_stores_tree(os.path.join(stores_root, family),
+                                      seed + 25 + i)
+             for i, family in enumerate(STORE_DBS)}
     cl = _CliCluster(root)
     steps: dict = {}
     s3: dict = {}
+    stores: dict = {}
+    stores_steps: dict = {}
+    store_filers: dict[str, str] = {}
+    stores_vols: dict = {}
+    stores_placement: dict = {}
+    stores_k1 = {"encode_batches": 0, "rebuild_batches": 0}
     launches: dict = {}
     contexts: dict = {}
+    route_of = {FILER_COLLECTION: "filer", S3_BUCKET: "s3",
+                STORES_COLLECTION: "stores"}
     try:
         # 1. a master, four volume servers on the card, a filer on lsm
         (master,) = cl.start_masters(1024, count=1)
@@ -4160,6 +4399,11 @@ def filer_phase(work: str, total_mb: int, seed: int,
             key `s3`."""
             return cl.launched(step, expect, counts, "s3", name)
 
+        def stores_launched(step: str, expect: dict[str, int]) -> dict:
+            """launched() of the stores route, under the path key
+            `stores`."""
+            return cl.launched(step, expect, counts, "stores", name)
+
         def launched_split(step: str, by_route: dict) -> dict:
             """launched() of a step that serves both routes (route ->
             {server: launches}): each server checked against the sum,
@@ -4186,15 +4430,22 @@ def filer_phase(work: str, total_mb: int, seed: int,
                        for u in live}
             filer_holds = _holds_card(cl.filers[filer].pid)
             gateway_holds = _holds_card(cl.gateways[gateway].pid)
+            # the stores route's filers and their databases' process
+            others = {f"filer_{family}": _holds_card(cl.filers[sf].pid)
+                      for family, sf in store_filers.items()}
+            others.update({u: _holds_card(p.pid)
+                           for u, p in cl.dbs.items()})
             contexts[step] = {"compute_apps": apps, "servers": holding,
                               "filer": filer_holds,
-                              "s3_gateway": gateway_holds}
+                              "s3_gateway": gateway_holds,
+                              "stores": others}
             if len(apps) != 1 + len(live) or not all(holding.values()) \
-                    or filer_holds or gateway_holds:
+                    or filer_holds or gateway_holds or any(others.values()):
                 raise AssertionError(f"{step}: compute apps {apps}, "
                                      f"servers holding the card {holding}, "
                                      f"the filer {filer_holds}, the S3 "
-                                     f"gateway {gateway_holds}")
+                                     f"gateway {gateway_holds}, the stores "
+                                     f"route {others}")
 
         def shell(*lines: str):
             out, wall, routes = cl.cli_counted(
@@ -4423,6 +4674,115 @@ def filer_phase(work: str, total_mb: int, seed: int,
                              **_ms_stats(took))
             return sum(rec.values())
 
+        def no_tier_move(step: str, vids) -> None:
+            """Fail the step where the master's tiering autopilot moved one
+            of `vids`: it moves a volume older than 120 s by itself once
+            `ec.encode` seals it, and would generate its shards a second
+            time (or decode them)."""
+            moved = [m for m in http_json(
+                "GET", f"http://{master}/cluster/tiering",
+                timeout=10)["dispatched"] if m["vid"] in vids]
+            if moved:
+                raise AssertionError(f"{step}: the tiering autopilot moved "
+                                     f"{moved}")
+
+        def stores_get(family: str, step: str) -> None:
+            """Every file of the family through its filer on one thread,
+            sha256-equal, with no K1 launch."""
+            files = trees[family]
+            cl.reset_counts()
+            wall, took, routes, _ = _filer_gets(
+                store_filers[family], files, 1,
+                prefix=f"{STORES_PREFIX}{family}/")
+            stores_launched(f"stores_{family}_{step}", {})
+            stores[family][step] = _step(stores[family]["bytes"], wall,
+                                         **routes, **_ms_stats(took))
+            stores[family][f"{step}_sha256_equal"] = len(files)
+
+        def stores_route() -> None:
+            """The stores route, after the tree's encode: the seven wire
+            families' databases in one process (db_child); for each, `weed
+            filer -store <family> -dir 127.0.0.1:<port>` against the
+            phase's master, /stores/ sent to the collection `stores` on
+            that filer (the request fs.configure makes), `weed filer.copy`
+            of the
+            family's tree, every file GET through the filer, the filer
+            SIGKILLed and restarted on the same database (its time to a
+            first answer), fs.du and the listing equal to the tree. Then
+            `lock` / `ec.encode -collection stores` / `unlock` at once,
+            while the volume is younger than the tiering autopilot's
+            120 s: K1 on its source, one launch per batch, under the path
+            key `stores`. The volume is lost and rebuilt with the
+            others."""
+            db_ports = cl.start_dbs()
+            addr = {family: f"127.0.0.1:{db_ports[family]}"
+                    for family in STORE_DBS}
+            for family, port in zip(STORE_DBS, _free_ports(len(STORE_DBS))):
+                store_filers[family] = cl.start_filer(
+                    master, port, addr[family], store=family)
+            up = cl.wait_up(list(store_filers.values()), "/")
+            for family, sf in store_filers.items():
+                files = trees[family]
+                nbytes = sum(size for _, size, _ in files)
+                rec = stores[family] = {"files": len(files),
+                                        "bytes": nbytes,
+                                        "startup_s": up[sf]}
+                conf = http_json("POST", f"http://{sf}/__api/filer_conf",
+                                 {"location_prefix": STORES_PREFIX,
+                                  "collection": STORES_COLLECTION})
+                if [r["collection"] for r in conf["locations"]] != [
+                        STORES_COLLECTION]:
+                    raise AssertionError(f"stores {family}: filer.conf "
+                                         f"{conf}")
+                cl.reset_counts()
+                out, wall = cl.cli("filer.copy", "-filer", sf,
+                                   os.path.join(stores_root, family),
+                                   STORES_PREFIX)
+                if json.loads(out.splitlines()[-1]) != {
+                        "copied": len(files), "dest": STORES_PREFIX}:
+                    raise AssertionError(f"stores {family}: weed "
+                                         f"filer.copy printed {out[-2000:]}")
+                rec["ingest"] = _step(nbytes, wall)
+                stores_launched(f"stores_{family}_ingest", {})
+                stores_get(family, "get_1")
+                t0 = time.monotonic()
+                cl.kill(sf)
+                cl.start_filer(master, int(sf.rsplit(":", 1)[1]),
+                               addr[family], store=family)
+                rec["restart"] = {
+                    "first_answer_s": cl.wait_up([sf], "/")[sf],
+                    "since_kill_s": time.monotonic() - t0}
+                rec["entries_listed"] = stores_listing(sf, family, files)
+            cl.reset_counts()
+            svols = vol_stats(STORES_COLLECTION)
+            if not svols:
+                raise AssertionError("the stores route filled no volume")
+            replies, wall = shell("lock", f"ec.encode -collection "
+                                          f"{STORES_COLLECTION}", "unlock")
+            enc = replies[1]
+            if sorted(r["vid"] for r in enc) != sorted(svols):
+                raise AssertionError(f"stores ec.encode {enc}, volumes "
+                                     f"{svols}")
+            no_tier_move("stores_encode", svols)
+            expect: dict[str, int] = {}
+            for r in enc:
+                src, dat = svols[r["vid"]]
+                if r["source"] != src:
+                    raise AssertionError(f"stores ec.encode source {r}")
+                expect[src] = expect.get(src, 0) + _encode_batches(
+                    dat, layout.DATA_SHARDS_COUNT)
+            stores_k1["encode_batches"] = sum(expect.values())
+            stores_steps["encode"] = _step(
+                sum(d for _, d in svols.values()), wall, volumes=len(svols),
+                batches=sum(expect.values()),
+                launches=stores_launched("stores_encode", expect))
+            _wait_for(lambda: all(sum(map(len, ec_shards().get(v, {})
+                                          .values())) == total
+                                  for v in svols),
+                      "every stores shard to register", timeout=60.0)
+            stores_vols.update(svols)
+            stores_placement.update({r["vid"]: r["placement"] for r in enc})
+
         on_card("started")
 
         # 2. fs.configure: /data in the collection filer_smoke
@@ -4481,12 +4841,13 @@ def filer_phase(work: str, total_mb: int, seed: int,
         vols = {**vols, **s3_vols}
         if sorted(r["vid"] for r in enc) != sorted(vols):
             raise AssertionError(f"ec.encode {enc}, volumes {vols}")
+        no_tier_move("encode", vols)
         expect: dict[str, dict[str, int]] = {"filer": {}, "s3": {}}
         for r in enc:
             src, dat = vols[r["vid"]]
             if r["source"] != src:
                 raise AssertionError(f"ec.encode source {r}")
-            part = expect["s3" if coll[r["vid"]] == S3_BUCKET else "filer"]
+            part = expect[route_of[coll[r["vid"]]]]
             part[src] = part.get(src, 0) + _encode_batches(
                 dat, layout.DATA_SHARDS_COUNT)
         launches["encode"] = launched_split("encode", expect)
@@ -4504,6 +4865,18 @@ def filer_phase(work: str, total_mb: int, seed: int,
                                        if k.startswith("POST /admin/")),
                                    split=shell.routes["seconds"])
         placement = {r["vid"]: r["placement"] for r in enc}
+
+        # 5b. the stores route: seven wire-store filers, their trees copied
+        # in, read, each filer restarted on its database, their volume
+        # encoded; after the tree's encode (a running filer slows the
+        # tree's filer.copy by following its change log, and the tree's
+        # volume must reach its encode younger than 120 s) and before the
+        # kill, so that its volume is lost and rebuilt with the others
+        stores_route()
+        on_card("stores")
+        vols.update(stores_vols)
+        coll.update({v: STORES_COLLECTION for v in stores_vols})
+        placement.update(stores_placement)
 
         def recovered_all(url: str) -> int:
             """The server's reconstructs so far: its store counts them
@@ -4526,6 +4899,9 @@ def filer_phase(work: str, total_mb: int, seed: int,
         if any(total - len(ids) < layout.DATA_SHARDS_COUNT
                for ids in lost.values()):
             raise AssertionError(f"losing {victim} leaves < k: {lost}")
+        if not all(lost[v] for v in stores_vols):
+            raise AssertionError(f"{victim} held no shard of the stores "
+                                 f"volumes: {lost}")
 
         # 7. restart the filer from its lsm directory (SIGKILL first): its
         # chunk cache is cold, its namespace comes back from the store
@@ -4612,7 +4988,7 @@ def filer_phase(work: str, total_mb: int, seed: int,
                     for p in plans):
                 raise AssertionError(f"{step}: ec.rebuild planned {plans}, "
                                      f"expected {want}")
-            expect: dict = {"filer": {}, "s3": {}}
+            expect: dict = {"filer": {}, "s3": {}, "stores": {}}
             rebuilt_bytes = 0
             for plan in plans:
                 v, rb = plan["vid"], plan["rebuilder"]
@@ -4627,10 +5003,11 @@ def filer_phase(work: str, total_mb: int, seed: int,
                     cl.vdir(rb), f"{coll[v]}_{v}"
                                  f"{layout.shard_ext(want[v][0])}"))
                 rebuilt_bytes += size * len(want[v])
-                part = expect["s3" if coll[v] == S3_BUCKET else "filer"]
+                part = expect[route_of[coll[v]]]
                 part[rb] = part.get(rb, 0) + \
                     -(-size // encoder.DEFAULT_BATCH_SIZE)
             no_queue_fallback(step, queue_at_drop)
+            stores_k1["rebuild_batches"] += sum(expect["stores"].values())
             launches[step] = launched_split(step, expect)
             _wait_for(lambda: not queue_busy() and all(
                 sum(map(len, ec_shards().get(v, {}).values())) == total
@@ -4728,6 +5105,11 @@ def filer_phase(work: str, total_mb: int, seed: int,
             u: recovered_all(u) - before[u] for u in cl.live_servers()})
         s3["get_rebuilt_16"] = _step(s3_bytes, wall, **_ms_stats(took))
 
+        # 9d. every file of the seven store families once more, each
+        # through its own filer
+        for family in store_filers:
+            stores_get(family, "get_rebuilt_1")
+
         # 10. volume.fsck, fs.du, fs.ls
         cl.reset_counts()
         (fsck, du, ls), wall = shell("volume.fsck", "fs.du /data",
@@ -4817,6 +5199,8 @@ def filer_phase(work: str, total_mb: int, seed: int,
         # what the phase measured before it failed, for the log
         emit("filer_failed", steps=steps, launches=launches)
         emit("s3_failed", steps=s3)
+        emit("stores_failed", families=stores, steps=stores_steps,
+             k1=stores_k1)
         raise
     finally:
         codes = cl.stop()
@@ -4840,6 +5224,17 @@ def filer_phase(work: str, total_mb: int, seed: int,
          cold_bytes=sum(len(d) for _, d, _, _ in cold), steps=s3,
          launches={k: v for k, v in launches.items()
                    if k.startswith("s3_")},
+         bodies_sha256_equal=True)
+    k1_stores = counts.of("gf_apply").get("stores", 0)
+    if k1_stores != stores_k1["encode_batches"] + \
+            stores_k1["rebuild_batches"] or not stores_k1["rebuild_batches"]:
+        raise AssertionError(f"stores: {k1_stores} K1 launches, batches "
+                             f"{stores_k1}")
+    emit("stores", families=stores, steps=stores_steps,
+         collection=STORES_COLLECTION,
+         volumes={v: {"server": name[vols[v][0]], "dat_bytes": vols[v][1],
+                      "lost": lost[v]} for v in stores_vols},
+         k1={**stores_k1, "launches": k1_stores},
          bodies_sha256_equal=True)
 
 
@@ -4931,6 +5326,7 @@ def main() -> int:
     emit("device", name=name, nvidia_smi=smi, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda)
     emit("packages", **packages())
+    phase_sim()
     phase_build()
     worst_gf = phase_kernel(args.seed)
     worst_mxu = phase_kernel_mxu(args.seed)
@@ -4996,4 +5392,6 @@ if __name__ == "__main__":
         sys.exit(volume_child(sys.argv[2], sys.argv[3:]))
     if sys.argv[1:2] == ["cli-child"]:  # a cli-phase shell or backup
         sys.exit(cli_child(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["db-child"]:  # the stores route's databases
+        sys.exit(db_child(sys.argv[2]))
     sys.exit(main())

@@ -25,7 +25,8 @@ volume servers that hold the chunks.
 process's gRPC plane on its port + 10000, as the reference does;
 ``master.follower -grpcAddresses`` feeds the follower's vidMap from the
 masters' KeepConnected stream; ``filer -store etcd`` speaks etcd's gRPC KV
-API.
+API, and ``filer -store redis|mysql|postgres|mongodb|cassandra|elastic`` the
+other wire families.
 
 ``s3``, ``webdav``, ``ftp`` and ``iam`` run the port's gateways over a
 remote filer (``filer/remote_store.py``), ``server -filer -s3`` the S3
@@ -34,8 +35,7 @@ the filer's process. None of them takes a device.
 
 What needs a plane the port does not have yet raises NotImplementedError
 before any socket is bound, naming the slice of ROADMAP.md queue 1 it
-comes with: the other wire-protocol filer stores (the filer-stores
-slice); ``filer -mq``, ``mount``, ``fuse``, ``filer.sync``,
+comes with: ``filer -mq``, ``mount``, ``fuse``, ``filer.sync``,
 ``filer.replicate``, ``filer.backup``, ``filer.meta.*`` and
 ``filer.remote.*`` (mount, mq and replication). Their parsers stay, so
 ``-h`` and ``autocomplete`` list the reference's subcommands. It imports

@@ -9,11 +9,8 @@ postgres_store.py, mongodb_store.py OP_MSG, cassandra_store.py CQL,
 elastic_store.py REST). New stores implement the same five entry ops +
 kv + listing.
 
-The port's copy of seaweedfs_tpu/filer/filerstore.py. The embedded stores
-(memory, sqlite, lsm) and etcd (etcd_store.py, gRPC) work; the other
-wire-protocol stores are not ported yet, and
-``make_store`` raises NotImplementedError for them naming their slice. It
-imports nothing of that package.
+The port's copy of seaweedfs_tpu/filer/filerstore.py, with every family
+of the reference's registry. It imports nothing of that package.
 """
 
 from __future__ import annotations
@@ -24,8 +21,6 @@ import threading
 from typing import Optional
 
 from seaweedfs_tpu_torch.filer.entry import Entry
-from seaweedfs_tpu_torch.utils.unported import (
-    FILER_STORES_SLICE, not_ported)
 
 
 class FilerStore(abc.ABC):
@@ -155,30 +150,31 @@ def _lazy(module: str, cls: str):
     return factory
 
 
-def _unported(name: str, slice_: str):
-    """A store the port does not have yet: raises where it is made."""
-    def factory(**kwargs):
-        raise not_ported(f"the {name} filer store", slice_)
-    factory.__name__ = name
-    return factory
-
-
 # The store registry — the analogue of the reference's blank-import
-# plugin table (weed/command/imports.go:17-36): the embedded stores
-# (memory, sqlite, lsm), etcd (gRPC) and the remote-filer adapter used by
-# gateway mode; the other wire-protocol families (redis RESP2, mysql,
-# postgres, mongodb OP_MSG, cassandra CQL, elasticsearch REST) come with
-# a later slice.
+# plugin table (weed/command/imports.go:17-36). Ten families:
+# embedded (memory, sqlite, lsm) and wire-protocol (redis RESP2,
+# etcd gRPC, mysql, postgres, mongodb OP_MSG, cassandra CQL,
+# elasticsearch REST), plus
+# the remote-filer adapter used by gateway mode.
 STORES = {
     "memory": MemoryStore,
     "sqlite": _lazy("seaweedfs_tpu_torch.filer.abstract_sql", "SqliteStore"),
     "lsm": _lazy("seaweedfs_tpu_torch.filer.lsm_store", "LsmStore"),
+    "redis": _lazy("seaweedfs_tpu_torch.filer.redis_store",
+                   "RedisFilerStore"),
     "etcd": _lazy("seaweedfs_tpu_torch.filer.etcd_store", "EtcdFilerStore"),
+    "mysql": _lazy("seaweedfs_tpu_torch.filer.mysql_store",
+                   "MysqlFilerStore"),
+    "postgres": _lazy("seaweedfs_tpu_torch.filer.postgres_store",
+                      "PostgresFilerStore"),
+    "mongodb": _lazy("seaweedfs_tpu_torch.filer.mongodb_store",
+                     "MongoFilerStore"),
+    "cassandra": _lazy("seaweedfs_tpu_torch.filer.cassandra_store",
+                       "CassandraFilerStore"),
+    "elastic": _lazy("seaweedfs_tpu_torch.filer.elastic_store",
+                     "ElasticFilerStore"),
     "remote": _lazy("seaweedfs_tpu_torch.filer.remote_store",
                     "RemoteFilerStore"),
-    **{name: _unported(name, FILER_STORES_SLICE)
-       for name in ("redis", "mysql", "postgres", "mongodb", "cassandra",
-                    "elastic")},
 }
 _ALIASES = {"mongo": "mongodb", "postgres2": "postgres",
             "mysql2": "mysql", "redis2": "redis",

@@ -4,19 +4,15 @@ What needs one of them raises NotImplementedError where it is reached,
 before any socket is bound, and names the slice it comes with. Nothing of
 the port quietly does less in its place.
 
-What is left: the wire-protocol filer stores but etcd and ``remote``
-(FILER_STORES_SLICE), and the rest of the gateway slice (GATEWAY_SLICE):
+What is left is the rest of the gateway slice (GATEWAY_SLICE):
 ``mount/``, ``mq/``, ``replication/``, the Azure remote-storage client
 and ``notification/``'s external queues. The cloud tier, the S3 / IAM /
-WebDAV / FTP gateways, the S3-dialect remote client and the ``remote``
-filer store are ported.
+WebDAV / FTP gateways, the S3-dialect remote client, the macro simulator
+and every filer store family are ported.
 """
 
 from __future__ import annotations
 
-FILER_STORES_SLICE = ("the filer-stores slice of ROADMAP.md queue 1 "
-                      "(filer/{redis,mysql,postgres,mongodb,cassandra,"
-                      "elastic}_store.py)")
 GATEWAY_SLICE = ("the rest of the gateway slice of ROADMAP.md queue 1 "
                  "(mount/, mq/, replication/, "
                  "remote_storage/azure_client.py, notification/'s "

@@ -168,8 +168,9 @@ def test_same_subcommands_as_jax(capsys):
 
 
 @pytest.mark.parametrize("argv,slice_", [
-    (["filer", "-store", "redis"], "filer-stores"),
-    (["filer", "-store", "mongodb"], "filer-stores"),
+    # the wire stores are ported; -mq raises before one dials its database
+    (["filer", "-store", "redis", "-mq"], "gateway"),
+    (["filer", "-store", "mongodb", "-mq"], "gateway"),
     (["filer.meta.tail"], "gateway"),
     (["filer", "-mq"], "gateway"),
     (["mount", "/mnt/x"], "gateway"),

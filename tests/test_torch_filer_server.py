@@ -14,8 +14,8 @@ directory. Held equal: listings, each entry's size, mime, md5, chunk
 offsets and sizes (not fids or times), every body, the status codes and
 the 302 decisions. Also here: the metadata aggregator between two filers
 (port + port, and port + JAX on one master), the shell's fs.* family and
-volume.fsck through the REPL, and what the filer leaves unported raising
-NotImplementedError before it binds a socket.
+volume.fsck through the REPL, and a wire store whose database does not
+answer failing before the filer binds a socket.
 (ref tests/test_filer.py, test_filer_depth.py, test_shell_fs.py,
 test_meta_aggregator.py, test_streaming_ingest.py, the filer parts of
 test_write_path.py, test_zero_copy.py and test_cipher_ftp.py.)
@@ -451,18 +451,21 @@ def test_repl_fs_commands_and_volume_fsck(tmp_path, capsys):
 # ---------------- what stays unported ----------------
 
 
-@pytest.mark.parametrize("kw,slice_", [
-    ({"store": "redis"}, "filer-stores slice"),
-    ({"store": "mysql"}, "filer-stores slice"),
-    ({"store": "postgres", "store_dir": "127.0.0.1:5432"},
-     "filer-stores slice")])
-def test_unported_filer_options_raise_before_binding(kw, slice_,
-                                                     monkeypatch):
+@pytest.mark.parametrize("kw", [
+    {"store": "redis"}, {"store": "mysql"}, {"store": "postgres"},
+    {"store": "mongodb"}, {"store": "cassandra"}, {"store": "elastic"}])
+def test_unported_filer_options_raise_before_binding(kw, monkeypatch):
+    """Every store family is ported now. A wire store dials its database
+    where it is made, so a filer whose database does not answer at
+    store_dir raises before it binds a socket, as the reference's does
+    (tests/test_torch_filer_stores.py runs them against their servers)."""
     bound = []
     monkeypatch.setattr(filer_server, "HttpServer",
                         lambda *a, **k: bound.append(a))
-    with pytest.raises(NotImplementedError, match=slice_):
-        filer_server.FilerServer("127.0.0.1:1", **kw)
+    dead = _free_ports(1)[0]  # closed again: nothing listens there
+    with pytest.raises(OSError):
+        filer_server.FilerServer("127.0.0.1:1", store_dir=f"127.0.0.1:{dead}",
+                                 **kw)
     assert bound == []
 
 

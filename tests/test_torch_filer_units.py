@@ -6,9 +6,9 @@ cache, the three embedded stores under one operation script, an LSM
 directory written by each package opened by the other, the reader and
 chunk caches, the cipher, the ledger auto-capper, the notification queues
 and remote mounts over a local remote. Each case runs the same script on
-both packages and compares what they return; the unported stores, queues
-and the Azure remote client raise NotImplementedError naming their
-slice.
+both packages and compares what they return; the wire stores' names and
+aliases resolve through make_store, and the unported queues and the Azure
+remote client raise NotImplementedError naming their slice.
 (ref tests/test_filer.py, test_filer_depth.py, test_metalog_persist.py,
 test_reader_cache.py, test_shard_scaleout.py's autocap cases,
 test_cipher_ftp.py's cipher cases, test_remote_storage.py.)
@@ -433,14 +433,34 @@ def test_lsm_directory_opens_in_either_package(tmp_path):
         assert read(dst, d)[1]  # /a holds entries
 
 
-@pytest.mark.parametrize("name,slice_", [
-    ("redis", "filer-stores slice"), ("mysql", "filer-stores slice"),
-    ("postgres2", "filer-stores slice"), ("mongodb", "filer-stores slice"),
-    ("cassandra", "filer-stores slice"), ("elastic7", "filer-stores slice"),
-    ("redis2", "filer-stores slice")])
-def test_unported_stores_raise_naming_their_slice(name, slice_):
-    with pytest.raises(NotImplementedError, match=slice_):
-        p_store.make_store(name, host="127.0.0.1", port=1)
+@pytest.mark.parametrize("name,cls", [
+    ("redis", "RedisFilerStore"), ("mysql", "MysqlFilerStore"),
+    ("postgres2", "PostgresFilerStore"), ("mongodb", "MongoFilerStore"),
+    ("cassandra", "CassandraFilerStore"), ("elastic7", "ElasticFilerStore"),
+    ("redis2", "RedisFilerStore")])
+def test_unported_stores_raise_naming_their_slice(name, cls):
+    """The wire stores came with the filer-stores slice: each name and
+    alias resolves through make_store to the port's class, which talks to
+    the port's mini server of its family."""
+    import importlib
+    family = p_store._ALIASES.get(name, name)
+    mod = importlib.import_module(
+        f"seaweedfs_tpu_torch.filer.{family}_store")
+    mini = {"redis": "MiniRedisServer", "mysql": "MiniMysqlServer",
+            "postgres": "MiniPostgresServer", "mongodb": "MiniMongoServer",
+            "cassandra": "MiniCassandraServer",
+            "elastic": "MiniElasticServer"}[family]
+    srv = getattr(mod, mini)().start()
+    try:
+        s = p_store.make_store(name, host="127.0.0.1", port=srv.port)
+        try:
+            assert type(s) is getattr(mod, cls)
+            s.kv_put(b"k", b"v")
+            assert s.kv_get(b"k") == b"v"
+        finally:
+            s.close()
+    finally:
+        srv.stop()
 
 
 # ---------------- reader and chunk caches ----------------

@@ -92,7 +92,14 @@ def test_port_and_smoke_never_import_jax_or_reference():
                 "pb/iam_pb2.py", "gateway/__init__.py",
                 "gateway/iam_server.py", "gateway/s3_server.py",
                 "filer/remote_store.py", "gateway/webdav_server.py",
-                "gateway/ftp_server.py"):
+                "gateway/ftp_server.py",
+                # the macro simulator and the wire-protocol stores
+                "sim/__init__.py", "sim/__main__.py", "sim/kernel.py",
+                "sim/faults.py", "sim/workload.py", "sim/actors.py",
+                "sim/harness.py", "sim/incidents.py",
+                "filer/redis_store.py", "filer/mysql_store.py",
+                "filer/postgres_store.py", "filer/mongodb_store.py",
+                "filer/cassandra_store.py", "filer/elastic_store.py"):
         assert PORT / rel in files, rel
     bad = {str(f.relative_to(REPO)): [n for n in _imported_modules(f)
                                       if _forbidden(n)]
@@ -341,8 +348,8 @@ def test_control_plane_raises_for_what_is_not_ported(monkeypatch):
     ported: the master serves one on grpc_port (also as `master -grpc` on
     the command line), the client's push mode starts its KeepConnected
     loop, and the shell probes each volume server's plane once, caching a
-    miss. What stays unported raises where it is reached: the
-    wire-protocol filer stores a filer would be made on."""
+    miss. What stays unported raises where it is reached: filer.sync
+    between two filers (replication/), before it dials either."""
     from seaweedfs_tpu_torch import cli
     from seaweedfs_tpu_torch.client.wdclient import MasterClient
     from seaweedfs_tpu_torch.server import master
@@ -368,9 +375,8 @@ def test_control_plane_raises_for_what_is_not_ported(monkeypatch):
         assert mc._kc_thread.is_alive()
     finally:
         mc.stop()
-    from seaweedfs_tpu_torch.filer.filerstore import make_store
-    with pytest.raises(NotImplementedError, match="filer-stores slice"):
-        make_store("redis")
+    with pytest.raises(NotImplementedError, match="gateway slice"):
+        cli.main(["filer.sync", "-a", "127.0.0.1:1", "-b", "127.0.0.1:2"])
     sh = ShellContext("127.0.0.1:1")
     assert sh._grpc_client("127.0.0.1:2") is None
     assert sh._grpc_clients == {"127.0.0.1:2": None}
