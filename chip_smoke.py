@@ -243,7 +243,9 @@ Phases, each printing one JSON line:
                  in 8 MiB parts, PUT on 1 and 16 threads, GET on 1 and
                  16 threads sha256-equal, ListObjectsV2 by prefix and
                  delimiter, a presigned GET, unsigned requests refused.
-                 `ec.encode -collection bkt` runs with the tree's; the
+                 `ec.encode -collection bkt` runs right after that
+                 traffic, the tree's right after its GETs (each volume
+                 younger than the tiering autopilot's 120 s); the
                  gateway restarts with the filer (a cold chunk cache); at
                  the same SIGKILL every object and 64 Range GETs through the
                  gateway on one thread as soon as the master has dropped
@@ -277,7 +279,42 @@ Phases, each printing one JSON line:
                  on the rebuilder); after the rebuild every file of every
                  family GET again through its filer, sha256-equal. Its K1
                  launches count under the path key `stores` and equal the
-                 stores volume's encode and rebuild batches
+                 stores volume's encode and rebuild batches.
+                 The replication and mount routes in the same process
+                 layout (the `replication` line), the filer started with
+                 `-mq -mqPort P` from its first start on: right after the
+                 one-thread degraded S3 pass, while the volumes are
+                 degraded, `... filer.backup -filer F -filerPath
+                 /data/tree/<dir> -dir <mirror>` (through `cli-child`) on
+                 the largest second-level directory of at most 64 MiB,
+                 done when every file is in the mirror sha256-equal (it
+                 replays F's change log, which F journals beside its lsm
+                 store across the restart), then `mount-child`: what `...
+                 mount -filer F` serves short of the kernel
+                 (cli.open_mount: WeedFS over F's remote store view, its
+                 gRPC admin plane announced to the master) reads every
+                 file of a second such directory through lookup / open /
+                 read / release sha256-equal, writes four seeded files
+                 under /mount_rw, renames and reads them back, and the
+                 REPL's `mount.configure -collectionCapacity 3 GiB`
+                 changes what its statfs reports. K1 launches = the live
+                 servers' reconstructs, under the path keys `sync` and
+                 `mount` (above 0 together). After the rebuild and the
+                 bucket's deletion, on healthy volumes: a second `...
+                 filer -store lsm` B and `... filer.sync -a F -b B
+                 -aPrefix /data/tree/<dir> -bPrefix /sync_b` (the
+                 directory on B sha256-equal, a file written on B under
+                 /sync_b on F, neither change log growing after: no
+                 echo); `... filer.meta.tail -pathPrefix /data` and `...
+                 filer.meta.backup -filerPath /data`, each counting one
+                 create per directory and file of the tree and one delete
+                 per entry `fs.rm -r` removed; 4096 seeded records of
+                 1-16 KiB on 16 keys published to F's mq broker through
+                 the port's MqClient, each partition replayed in publish
+                 order, its segments filer files with chunks on the volume
+                 servers, `mq.topic.list` naming the topic. No volume
+                 written since the kill is moved by the tiering
+                 autopilot; no route's process holds /dev/nvidiaN
 Then the memory line, the kernel summary line, the `nvidia-smi` line, and
 the result line {"ok": true, "device": {...}} last. Each path phase is
 driven with every kernel entry's launch counter set to 0 just before it
@@ -2869,10 +2906,8 @@ def volume_child(counts_path: str, argv: list[str]) -> int:
 
     def report():
         with lock:
-            tmp = counts_path + ".tmp"
-            with open(tmp, "w") as f:
-                json.dump({**PathCounts.now(), "resets": resets[0]}, f)
-            os.replace(tmp, counts_path)
+            _write_json(counts_path, {**PathCounts.now(),
+                                      "resets": resets[0]})
 
     def reported(fn):
         def call(*a, **kw):
@@ -2897,6 +2932,13 @@ def volume_child(counts_path: str, argv: list[str]) -> int:
     return 0
 
 
+def _write_json(path: str, obj) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
 def cli_child(routes_path: str, argv: list[str]) -> int:
     """The entry that `cli_phase` runs a shell or backup command through:
     it counts, in this process, every HTTP request the port's http_call
@@ -2905,9 +2947,11 @@ def cli_child(routes_path: str, argv: list[str]) -> int:
     writes the counts into the JSON file `routes_path` when it ends, with
     the seconds spent importing the CLI, importing the gRPC client (which
     the counting needs even where the command sends no RPC), in cli.main,
-    in the shell's per-node gRPC probes (`_grpc_client`), in unary RPCs
-    and in HTTP requests. The commands' code keeps no count of its
-    own."""
+    in the shell's per-node gRPC probes (`_grpc_client`), in the
+    replication commands' probe of the filer's gRPC plane
+    (`_probe_filer_grpc`), in unary RPCs and in HTTP requests. A daemon
+    (filer.backup, filer.sync) writes them when SIGINT ends it. The
+    commands' code keeps no count of its own."""
     import collections
     import urllib.parse
     t0 = time.monotonic()
@@ -2959,6 +3003,10 @@ def cli_child(routes_path: str, argv: list[str]) -> int:
         setattr(client, attr, counted_rpc(getattr(client, attr), method))
     commands.ShellContext._grpc_client = timed(
         commands.ShellContext._grpc_client, "probe_s")
+    # the replication commands' probe of a filer's gRPC plane (it waits
+    # up to 0.5 s for the channel, as the reference's does)
+    from seaweedfs_tpu_torch.replication import sync
+    sync._probe_filer_grpc = timed(sync._probe_filer_grpc, "filer_probe_s")
     t1 = time.monotonic()
     try:
         cli.main(argv)
@@ -2995,10 +3043,7 @@ def db_child(ports_path: str) -> int:
         mod = importlib.import_module(f"seaweedfs_tpu_torch.filer.{module}")
         servers[family] = getattr(mod, cls)().start()
     ports = {family: srv.port for family, srv in servers.items()}
-    tmp = ports_path + ".tmp"
-    with open(tmp, "w") as f:
-        json.dump(ports, f)
-    os.replace(tmp, ports_path)
+    _write_json(ports_path, ports)
     print(json.dumps({"db_ports": ports}), flush=True)
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda signum, frame: stop.set())
@@ -3006,6 +3051,110 @@ def db_child(ports_path: str) -> int:
         pass
     for srv in servers.values():
         srv.stop()
+    return 0
+
+
+def mount_child(spec_path: str, out_path: str) -> int:
+    """The entry that the `filer` phase's mount route runs in a process of
+    its own: what `weed mount -master M -filer F` serves
+    (seaweedfs_tpu_torch.cli.open_mount: WeedFS over the filer's remote
+    store view, its gRPC admin plane announced to the master), driven
+    through WeedFS's operations instead of a kernel mount. It reads every
+    file of the spec's directory through lookup / open / read / release,
+    checking each sha256, writes the spec's seeded files in 1 MiB pieces,
+    renames each into a subdirectory and reads it back, and writes what
+    it saw to `out_path` ("done"). It then waits for the admin plane's
+    Configure (the REPL's mount.configure) to set a quota, writes the
+    statfs it reports ("configured"), and closes the mount on SIGTERM or
+    SIGINT."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import cli
+    from seaweedfs_tpu_torch.mount.fuse_kernel import ROOT_ID
+    with open(spec_path) as f:
+        spec = json.load(f)
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda signum, frame: stop.set())
+    t0 = time.monotonic()
+    w, admin_port, close = cli.open_mount(spec["master"], spec["filer"])
+    out: dict = {"admin_port": admin_port,
+                 "open_s": time.monotonic() - t0}
+
+    def resolve(path: str):
+        attr = None
+        ino = ROOT_ID
+        for name in path.strip("/").split("/"):
+            attr = w.lookup(ino, name)
+            if attr is None:
+                raise FileNotFoundError(path)
+            ino = attr.ino
+        return attr
+
+    def read_all(attr) -> bytes:
+        fh = w.open(attr.ino)
+        try:
+            return b"".join(w.read(attr.ino, fh, off, 1 << 20)
+                            for off in range(0, attr.size, 1 << 20))
+        finally:
+            w.release(attr.ino, fh)
+
+    try:
+        took = []
+        t0 = time.monotonic()
+        for rel, size, digest in spec["files"]:
+            t = time.perf_counter()
+            attr = resolve(f"{spec['read_dir']}/{rel}")
+            body = read_all(attr)
+            took.append(time.perf_counter() - t)
+            if attr.size != size or len(body) != size or \
+                    hashlib.sha256(body).hexdigest() != digest:
+                raise AssertionError(f"mount read {rel}: {attr.size} / "
+                                     f"{len(body)} of {size} bytes")
+        out["read"] = {"seconds": time.monotonic() - t0, "files": len(took),
+                       "bytes": sum(size for _, size, _ in spec["files"]),
+                       "per_file_s": took}
+        rng = np.random.default_rng(spec["seed"])
+        wdir = spec["write_dir"]
+        d = w.mkdir(ROOT_ID, wdir.strip("/"), 0o755)
+        moved = w.mkdir(d.ino, "moved", 0o755)
+        written = {}
+        t0 = time.monotonic()
+        for name, size in spec["writes"]:
+            data = rng.bytes(size)
+            attr, fh = w.create(d.ino, name, 0o644)
+            for off in range(0, size, 1 << 20):
+                w.write(attr.ino, fh, off, data[off:off + (1 << 20)])
+            w.release(attr.ino, fh)
+            if w.rename(d.ino, name, moved.ino, name) != 0:
+                raise AssertionError(f"mount rename {name}")
+            if w.lookup(d.ino, name) is not None:
+                raise AssertionError(f"mount: {name} still at its old name")
+            back = read_all(resolve(f"{wdir}/moved/{name}"))
+            if back != data:
+                raise AssertionError(f"mount read-back {name}: {len(back)} "
+                                     f"of {size} bytes differ")
+            written[name] = hashlib.sha256(data).hexdigest()
+        out["write"] = {"seconds": time.monotonic() - t0,
+                        "files": written,
+                        "bytes": sum(size for _, size in spec["writes"])}
+        out["statfs"] = list(w.statfs() or ())
+        out["phase"] = "done"
+        _write_json(out_path, out)
+        while not w.collection_capacity:
+            if stop.wait(0.05):
+                return 1
+        out["capacity"] = w.collection_capacity
+        out["statfs_configured"] = list(w.statfs() or ())
+        out["phase"] = "configured"
+        _write_json(out_path, out)
+        stop.wait()
+    except BaseException as e:
+        out["error"] = f"{type(e).__name__}: {e}"
+        _write_json(out_path, out)
+        raise
+    finally:
+        close()
     return 0
 
 
@@ -3083,6 +3232,8 @@ class _CliCluster:
         self.gateways: dict[str, subprocess.Popen] = {}
         self.followers: dict[str, subprocess.Popen] = {}
         self.dbs: dict[str, subprocess.Popen] = {}
+        # cli-child daemons (filer.backup, filer.sync) and mount-child
+        self.daemons: dict[str, subprocess.Popen] = {}
         self.filer_starts = 0
         self.filer_start_of: dict[str, int] = {}
         self.counted = 0
@@ -3140,6 +3291,51 @@ class _CliCluster:
             wall -= routes["seconds"]["grpc_import_s"]
         return p.stdout, wall, routes
 
+    def start_daemon(self, name: str, *args: str) -> str:
+        """A long-running `weed` command (filer.backup, filer.sync)
+        through `cli-child`, its routes written to routes_<name>.json
+        when stop_daemon ends it."""
+        self.start_s[name] = time.monotonic()
+        self.daemons[name] = self._spawn(name, [
+            sys.executable, os.path.abspath(__file__), "cli-child",
+            os.path.join(self.root, f"routes_{name}.json"), *args])
+        return name
+
+    def start_mount(self, name: str, spec: dict) -> str:
+        """`mount-child` with `spec`; its report goes to <name>.json."""
+        path = os.path.join(self.root, f"{name}_spec.json")
+        _write_json(path, spec)
+        self.start_s[name] = time.monotonic()
+        self.daemons[name] = self._spawn(name, [
+            sys.executable, os.path.abspath(__file__), "mount-child", path,
+            os.path.join(self.root, f"{name}.json")])
+        return name
+
+    def daemon_report(self, name: str, file: str = "") -> dict | None:
+        """What a daemon wrote into root/<file or name>.json, or None."""
+        try:
+            with open(os.path.join(self.root,
+                                   (file or name) + ".json")) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    def stop_daemon(self, name: str) -> float:
+        """SIGINT (a daemon's clean stop: `weed`'s wait ends, mount-child
+        closes its mount), then its exit, which must be 0; returns the
+        seconds the stop took."""
+        t0 = time.monotonic()
+        p = self.daemons[name]
+        p.send_signal(signal.SIGINT)
+        code = p.wait(timeout=60)
+        self.killed.add(name)  # ended on purpose: check_running skips it
+        if code != 0:
+            with open(p.log_path, errors="replace") as f:
+                tail = f.read()[-1500:]
+            raise AssertionError(f"{name} exited {code}; its log ends: "
+                                 f"{tail}")
+        return time.monotonic() - t0
+
     def start_masters(self, volume_limit_mb: int,
                       count: int = CLI_MASTERS,
                       grpc: bool = False) -> list[str]:
@@ -3158,11 +3354,13 @@ class _CliCluster:
         return urls
 
     def start_filer(self, master: str, port: int, store_dir: str,
-                    grpc: bool = False, store: str = "lsm") -> str:
+                    grpc: bool = False, store: str = "lsm",
+                    mq_port: int = 0) -> str:
         """`weed filer -store <store> -dir store_dir` on `port` (again after
         a kill: the same port, as the master still lists it), with -grpc
-        its gRPC plane on port + GRPC_OFFSET. A wire store's store_dir is
-        its database's host:port."""
+        its gRPC plane on port + GRPC_OFFSET, with mq_port the mq broker's
+        gRPC plane there (-mq -mqPort). A wire store's store_dir is its
+        database's host:port."""
         url = f"127.0.0.1:{port}"
         self.killed.discard(url)
         self.start_s[url] = time.monotonic()
@@ -3172,7 +3370,8 @@ class _CliCluster:
             f"filer_{port}_{self.filer_starts}", [
                 sys.executable, "-m", "seaweedfs_tpu_torch.cli", "filer",
                 "-port", str(port), "-master", master, "-store", store,
-                "-dir", store_dir, *(["-grpc"] if grpc else [])])
+                "-dir", store_dir, *(["-grpc"] if grpc else []),
+                *(["-mq", "-mqPort", str(mq_port)] if mq_port else [])])
         return url
 
     def start_dbs(self) -> dict[str, int]:
@@ -3246,7 +3445,7 @@ class _CliCluster:
     def check_running(self) -> None:
         for url, p in {**self.masters, **self.servers, **self.filers,
                        **self.gateways, **self.followers,
-                       **self.dbs}.items():
+                       **self.dbs, **self.daemons}.items():
             if url not in self.killed and p.poll() is not None:
                 with open(p.log_path, errors="replace") as f:
                     tail = f.read()[-1500:]
@@ -3355,16 +3554,18 @@ class _CliCluster:
         self.killed.add(url)
 
     def stop(self) -> dict[str, int]:
-        """SIGTERM the gateways, the filers, their databases, the volume
-        servers, then the masters (a server's drain announcement needs a
-        master); kill what outlives 60 s. Returns each process's exit
-        code."""
+        """SIGINT the daemons, then SIGTERM the gateways, the filers,
+        their databases, the volume servers, then the masters (a server's
+        drain announcement needs a master); kill what outlives 60 s.
+        Returns each process's exit code."""
         codes = {}
-        for group in (self.followers, self.gateways, self.filers, self.dbs,
-                      self.servers, self.masters):
+        for group in (self.daemons, self.followers, self.gateways,
+                      self.filers, self.dbs, self.servers, self.masters):
             for p in group.values():
                 if p.poll() is None:
-                    p.send_signal(signal.SIGTERM)
+                    # a daemon stops cleanly on SIGINT (stop_daemon)
+                    p.send_signal(signal.SIGINT if group is self.daemons
+                                  else signal.SIGTERM)
             for url, p in group.items():
                 try:
                     codes[url] = p.wait(timeout=60)
@@ -3944,6 +4145,58 @@ def make_filer_tree(root: str, total_mb: int, seed: int) -> list:
     return files
 
 
+ROUTE_MAX_MB = 64             # the sync and mount routes' directories
+MOUNT_WRITE_DIR = "/mount_rw"  # where the mount route writes (no collection)
+MOUNT_WRITES = (("w1k.bin", 1 << 10), ("w300k.bin", 300 << 10),
+                ("w5m.bin", 5 << 20), ("w12m.bin", 12 << 20))
+MOUNT_QUOTA = 3 << 30         # mount.configure -collectionCapacity
+SYNC_B_DIR = "/sync_b"        # filer.sync's B-side source directory
+MQ_TOPIC = ("smoke", "events")
+MQ_PARTITIONS = 4
+MQ_KEYS = 16
+MQ_RECORDS = 4096             # values of 1-16 KiB: about 34 MiB
+ROUTE_STEPS = ("sync_backup", "mount_read", "sync_both_ways")
+
+
+def route_dirs(files: list, limit: int) -> list[str]:
+    """The two largest second-level directories of the tree (aI/bJ) of
+    at most `limit` bytes, for the sync and mount routes; leaves
+    (aI/bJ/cK) where fewer than two second-level ones are that small."""
+    for depth in (2, 3):
+        size: dict[str, int] = {}
+        for rel, n, _ in files:
+            d = "/".join(rel.split("/")[:depth])
+            size[d] = size.get(d, 0) + n
+        fit = sorted((n, d) for d, n in size.items() if n <= limit)
+        if len(fit) >= 2:
+            return [fit[-1][1], fit[-2][1]]
+    raise AssertionError(f"no two tree directories of <= {limit} bytes")
+
+
+def tree_dirs(files: list) -> set[str]:
+    """Every directory of the tree (relative paths, the root as "")."""
+    out = {""}
+    for rel, _, _ in files:
+        parts = rel.split("/")[:-1]
+        out.update("/".join(parts[:i]) for i in range(1, len(parts) + 1))
+    return out
+
+
+def _settled(read, what: str, timeout: float = 30.0):
+    """`read()` once two reads 0.5 s apart agree (a request a stopped
+    client left in flight has been served)."""
+    last = read()
+    deadline = time.monotonic() + timeout
+    while True:
+        time.sleep(0.5)
+        now = read()
+        if now == last:
+            return now
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what} still changing after {timeout} s")
+        last = now
+
+
 STORES_COLLECTION = "stores"  # the stores route's collection
 STORES_PREFIX = "/stores/"    # each store filer's tree lands under it
 STORES_FILES = 256            # files of 1-256 KiB per family
@@ -4329,13 +4582,17 @@ def filer_phase(work: str, total_mb: int, seed: int,
     volume.fsck, fs.du, fs.ls, fs.rm -r and volume.fsck again. Beside
     the filer, `weed s3` over it: a bucket tiered to the gateway itself
     and back, `s3_mb` MiB of SigV4-signed objects in the bucket `bkt`
-    encoded with the tree, degraded S3 GETs at the same SIGKILL, GETs
+    encoded after the tree, degraded S3 GETs at the same SIGKILL, GETs
     after the rebuild and the bucket deleted (see s3_route). Beside them
     seven filers on the wire stores, one per family, over their databases
     in a process of their own: ingest, GETs, a restart and the collection
     `stores` encoded after the tree's encode, lost and rebuilt with the
     others, every file read back after the rebuild (stores_route,
-    stores_get)."""
+    stores_get). While the volumes are degraded `weed filer.backup` and
+    WeedFS of `weed mount` read a directory each (sync_route,
+    mount_route); after the rebuild a second filer with `weed
+    filer.sync`, the meta routes and the filer's mq broker
+    (sync_both_ways, meta_route, mq_route)."""
     import urllib.parse
 
     from seaweedfs_tpu_torch.storage.erasure_coding import encoder, layout
@@ -4367,6 +4624,10 @@ def filer_phase(work: str, total_mb: int, seed: int,
     stores_k1 = {"encode_batches": 0, "rebuild_batches": 0}
     launches: dict = {}
     contexts: dict = {}
+    # the replication, mount and mq routes (the `replication` line)
+    repl: dict = {}
+    sync_dir, mount_dir = route_dirs(files, ROUTE_MAX_MB << 20)
+    filer_b = ""
     route_of = {FILER_COLLECTION: "filer", S3_BUCKET: "s3",
                 STORES_COLLECTION: "stores"}
     try:
@@ -4376,8 +4637,10 @@ def filer_phase(work: str, total_mb: int, seed: int,
         startup = cl.wait_up([master], "/cluster/status")
         # the filer announces itself to the master as it starts
         store_dir = os.path.join(root, "filer_store")
+        # the mq broker rides the filer (-mq) from its first start on
+        mq_port = _free_ports(1)[0]
         filer = cl.start_filer(master, _free_ports(1, grpc=True)[0],
-                               store_dir, grpc=True)
+                               store_dir, grpc=True, mq_port=mq_port)
         startup.update(cl.wait_up(servers, "/status"))
         startup.update(cl.wait_up([filer], "/"))
         _wait_for(lambda: cl.registered(master) == set(servers),
@@ -4435,6 +4698,11 @@ def filer_phase(work: str, total_mb: int, seed: int,
                       for family, sf in store_filers.items()}
             others.update({u: _holds_card(p.pid)
                            for u, p in cl.dbs.items()})
+            # the replication and mount routes' processes while they run
+            others.update({n: _holds_card(p.pid)
+                           for n, p in cl.daemons.items() if p.poll() is None})
+            if filer_b:
+                others["filer_b"] = _holds_card(cl.filers[filer_b].pid)
             contexts[step] = {"compute_apps": apps, "servers": holding,
                               "filer": filer_holds,
                               "s3_gateway": gateway_holds,
@@ -4469,6 +4737,14 @@ def filer_phase(work: str, total_mb: int, seed: int,
                                                  f"{collection}_"
                                                  f"{v['id']}.dat")))
             return out
+
+        def all_vids() -> set[int]:
+            """Every plain volume the master lists."""
+            topo = http_json("GET", f"http://{master}/dir/status",
+                             timeout=10)["Topology"]
+            return {v["id"] for dc in topo["data_centers"]
+                    for r in dc["racks"] for n in r["nodes"]
+                    for v in n["volumes"]}
 
         def repair_status() -> dict:
             return http_json("GET", f"http://{master}/ec/repair/status",
@@ -4686,6 +4962,45 @@ def filer_phase(work: str, total_mb: int, seed: int,
                 raise AssertionError(f"{step}: the tiering autopilot moved "
                                      f"{moved}")
 
+        def encode_collection(step: str, collection: str, route: str,
+                              record: dict, key: str):
+            """`lock` / `ec.encode -collection <collection>` / `unlock`:
+            every volume of the collection encoded on its source, K1 one
+            launch per batch there (under the path key `route`), none of
+            them moved by the tiering autopilot, every shard registered
+            once; the step goes into record[key]. Returns ({vid: (source,
+            .dat bytes)}, the shell's encode replies)."""
+            cl.reset_counts()
+            cvols = vol_stats(collection)
+            replies, wall = shell("lock", f"ec.encode -collection "
+                                          f"{collection}", "unlock")
+            enc = replies[1]
+            if sorted(r["vid"] for r in enc) != sorted(cvols):
+                raise AssertionError(f"{step}: ec.encode {enc}, volumes "
+                                     f"{cvols}")
+            no_tier_move(step, cvols)
+            expect: dict[str, int] = {}
+            for r in enc:
+                src, dat = cvols[r["vid"]]
+                if r["source"] != src:
+                    raise AssertionError(f"{step}: ec.encode source {r}")
+                expect[src] = expect.get(src, 0) + _encode_batches(
+                    dat, layout.DATA_SHARDS_COUNT)
+            launches[step] = cl.launched(step, expect, counts, route, name)
+            _wait_for(lambda: all(sum(map(len, ec_shards().get(v, {})
+                                          .values())) == total
+                                  for v in cvols),
+                      f"every {collection} shard to register", timeout=60.0)
+            record[key] = _step(sum(d for _, d in cvols.values()), wall,
+                                volumes=len(cvols),
+                                batches=sum(expect.values()),
+                                http_admin_posts=sum(
+                                    n for k, n in
+                                    shell.routes["http"].items()
+                                    if k.startswith("POST /admin/")),
+                                split=shell.routes["seconds"])
+            return cvols, enc
+
         def stores_get(family: str, step: str) -> None:
             """Every file of the family through its filer on one thread,
             sha256-equal, with no K1 launch."""
@@ -4821,50 +5136,25 @@ def filer_phase(work: str, total_mb: int, seed: int,
             if not routes["proxied"] or not routes["redirected"]:
                 raise AssertionError(f"{step}: routes {routes}")
 
-        # 4b. the S3 gateway: the cloud tier round trip, then signed
-        # traffic into the bucket `bkt` (s3_tier_round_trip, s3_signed)
+        # 5. lock / ec.encode -collection filer_smoke / unlock right after
+        # the tree's GETs: the tiering autopilot moves a sealed volume
+        # older than 120 s by itself, and the tree's filer.copy and GETs
+        # take 45-80 s on the card's host
+        tree_vols, tree_enc = encode_collection("encode", FILER_COLLECTION,
+                                                "filer", steps, "ec_encode")
+
+        # 5a. the S3 gateway: the cloud tier round trip, then signed
+        # traffic into the bucket `bkt` (s3_tier_round_trip, s3_signed),
+        # then lock / ec.encode -collection bkt / unlock
         s3_tier_round_trip()
         s3_signed()
         on_card("before_encode")
-
-        # 5. lock / ec.encode -collection filer_smoke / ec.encode
-        # -collection bkt / unlock
-        cl.reset_counts()
-        s3_vols = vol_stats(S3_BUCKET)
-        coll = {**{v: FILER_COLLECTION for v in vols},
+        s3_vols, s3_enc = encode_collection("s3_encode", S3_BUCKET, "s3", s3,
+                                            "ec_encode")
+        vols = {**tree_vols, **s3_vols}
+        coll = {**{v: FILER_COLLECTION for v in tree_vols},
                 **{v: S3_BUCKET for v in s3_vols}}
-        replies, wall = shell("lock", f"ec.encode -collection "
-                                      f"{FILER_COLLECTION}",
-                              f"ec.encode -collection {S3_BUCKET}",
-                              "unlock")
-        enc = replies[1] + replies[2]
-        vols = {**vols, **s3_vols}
-        if sorted(r["vid"] for r in enc) != sorted(vols):
-            raise AssertionError(f"ec.encode {enc}, volumes {vols}")
-        no_tier_move("encode", vols)
-        expect: dict[str, dict[str, int]] = {"filer": {}, "s3": {}}
-        for r in enc:
-            src, dat = vols[r["vid"]]
-            if r["source"] != src:
-                raise AssertionError(f"ec.encode source {r}")
-            part = expect[route_of[coll[r["vid"]]]]
-            part[src] = part.get(src, 0) + _encode_batches(
-                dat, layout.DATA_SHARDS_COUNT)
-        launches["encode"] = launched_split("encode", expect)
-        _wait_for(lambda: all(sum(map(len, ec_shards().get(v, {})
-                                      .values())) == total for v in vols),
-                  "every shard to register", timeout=60.0)
-        steps["ec_encode"] = _step(sum(d for _, d in vols.values()), wall,
-                                   volumes=len(vols),
-                                   s3_volumes=len(s3_vols),
-                                   batches={r: sum(p.values())
-                                            for r, p in expect.items()},
-                                   http_admin_posts=sum(
-                                       n for k, n in
-                                       shell.routes["http"].items()
-                                       if k.startswith("POST /admin/")),
-                                   split=shell.routes["seconds"])
-        placement = {r["vid"]: r["placement"] for r in enc}
+        placement = {r["vid"]: r["placement"] for r in tree_enc + s3_enc}
 
         # 5b. the stores route: seven wire-store filers, their trees copied
         # in, read, each filer restarted on its database, their volume
@@ -4889,8 +5179,336 @@ def filer_phase(work: str, total_mb: int, seed: int,
                     continue
             return 0
 
+        def settled_recovered() -> dict[str, int]:
+            """Each live server's reconstructs once they stop moving (a
+            client's read-ahead may still be served after it exits)."""
+            return _settled(lambda: {u: recovered_all(u)
+                                     for u in cl.live_servers()},
+                            "the live servers' reconstructs")
+
+        def routes_of(name: str) -> dict:
+            """A cli-child daemon's requests: HTTP by route, gRPC by
+            method, seconds."""
+            r = cl.daemon_report(name, f"routes_{name}") or {}
+            return {"http": r.get("http", {}), "grpc": r.get("grpc", {}),
+                    "seconds": r.get("seconds", {})}
+
+        def sync_route() -> int:
+            """`weed filer.backup -filer F -filerPath /data/tree/<sync_dir>
+            -dir <mirror>` (cli-child) while the volumes are degraded: it
+            replays F's change log (journalled across F's restart) and
+            fetches each file through F, whose chunk reads make the live
+            servers reconstruct. Done when every file of the directory is
+            in the mirror, sha256-equal; then the process is stopped. K1
+            launches = the live servers' reconstructs, under `sync`."""
+            part = [f for f in files if f[0].startswith(sync_dir + "/")]
+            nbytes = sum(size for _, size, _ in part)
+            mirror = os.path.join(root, "backup")
+            queue = repair_status()
+            before = {u: recovered_all(u) for u in cl.live_servers()}
+            cl.reset_counts()
+            t0 = time.monotonic()
+            cl.start_daemon("backup", "filer.backup", "-filer", filer,
+                            "-filerPath", f"/data/tree/{sync_dir}",
+                            "-dir", mirror)
+            pending = {rel: (size, digest) for rel, size, digest in part}
+            first = []
+
+            def mirrored() -> bool:
+                cl.check_running()
+                for rel, (size, digest) in list(pending.items()):
+                    path = os.path.join(mirror, "data", "tree", rel)
+                    try:
+                        if os.path.getsize(path) != size:
+                            continue
+                    except OSError:
+                        continue
+                    with open(path, "rb") as f:
+                        if hashlib.sha256(f.read()).digest() == digest:
+                            del pending[rel]
+                            if not first:
+                                first.append(time.monotonic() - t0)
+                return not pending
+
+            _wait_for(mirrored, "filer.backup to mirror every file",
+                      timeout=240.0)
+            wall = time.monotonic() - t0
+            on_card("sync")
+            stop_s = cl.stop_daemon("backup")
+            rec = {u: n - before[u] for u, n in settled_recovered().items()}
+            no_queue_fallback("sync_backup", queue)
+            launches["sync_backup"] = cl.launched("sync_backup", rec, counts,
+                                                  "sync", name)
+            repl["sync_backup"] = _step(
+                nbytes, wall, dir=f"/data/tree/{sync_dir}", files=len(part),
+                first_file_s=first[0], stop_s=stop_s,
+                reconstructs=sum(rec.values()), routes=routes_of("backup"))
+            return sum(rec.values())
+
+        def mount_route() -> int:
+            """`mount-child`: WeedFS of `weed mount` over F (cli.open_mount,
+            no kernel mount) reads every file of /data/tree/<mount_dir>
+            through lookup / open / read / release while the volumes are
+            degraded (its chunk reads go straight to the volume servers),
+            writes, renames and reads back MOUNT_WRITES under
+            MOUNT_WRITE_DIR; the REPL's mount.configure reaches its admin
+            plane through the master and changes what its statfs reports;
+            the written files read back through F. K1 launches = the live
+            servers' reconstructs, under `mount`."""
+            part = [f for f in files if f[0].startswith(mount_dir + "/")]
+            nbytes = sum(size for _, size, _ in part)
+            queue = repair_status()
+            before = {u: recovered_all(u) for u in cl.live_servers()}
+            cl.reset_counts()
+            t0 = time.monotonic()
+            cl.start_mount("mount", {
+                "master": master, "filer": filer,
+                "read_dir": f"/data/tree/{mount_dir}",
+                "files": [[rel[len(mount_dir) + 1:], size, digest.hex()]
+                          for rel, size, digest in part],
+                "write_dir": MOUNT_WRITE_DIR,
+                "writes": [list(w) for w in MOUNT_WRITES],
+                "seed": seed + 26})
+
+            def report(phase: str):
+                def got():
+                    rep = cl.daemon_report("mount")
+                    if rep and rep.get("error"):
+                        raise AssertionError(f"mount-child: {rep['error']}")
+                    cl.check_running()
+                    return rep if rep and rep.get("phase") == phase else None
+                return got
+
+            rep = _wait_for(report("done"), "the mount's reads and writes",
+                            timeout=300.0)
+            wall = time.monotonic() - t0
+            on_card("mount")
+            (conf,), conf_s = shell(f"mount.configure -collectionCapacity "
+                                    f"{MOUNT_QUOTA}")
+            admin = f"127.0.0.1:{rep['admin_port']}"
+            if conf != {"mounts": {admin: MOUNT_QUOTA}}:
+                raise AssertionError(f"mount.configure: {conf}, the mount's "
+                                     f"admin plane {admin}")
+            rep = _wait_for(report("configured"), "the mount's quota",
+                            timeout=60.0)
+            if rep["statfs_configured"][0] != MOUNT_QUOTA // 4096 or \
+                    rep["statfs"][0] == rep["statfs_configured"][0]:
+                raise AssertionError(f"statfs {rep['statfs']} -> "
+                                     f"{rep['statfs_configured']}")
+            stop_s = cl.stop_daemon("mount")
+            rec = {u: n - before[u] for u, n in settled_recovered().items()}
+            no_queue_fallback("mount_read", queue)
+            launches["mount_read"] = cl.launched("mount_read", rec, counts,
+                                                 "mount", name)
+            # what the mount wrote, read through F by an HTTP client
+            for fname, digest in rep["write"]["files"].items():
+                status, body, _ = http_call(
+                    "GET", f"http://{filer}{MOUNT_WRITE_DIR}/moved/{fname}",
+                    timeout=120)
+                if status != 200 or hashlib.sha256(body).hexdigest() != \
+                        digest:
+                    raise AssertionError(f"GET {MOUNT_WRITE_DIR}/moved/"
+                                         f"{fname} through the filer: "
+                                         f"{status}, {len(body)} bytes")
+            read = rep["read"]
+            repl["mount"] = {
+                "read": _step(nbytes, read["seconds"],
+                              dir=f"/data/tree/{mount_dir}", files=len(part),
+                              reconstructs=sum(rec.values()),
+                              **_ms_stats(read["per_file_s"])),
+                "write": _step(rep["write"]["bytes"],
+                               rep["write"]["seconds"],
+                               files=len(rep["write"]["files"])),
+                "wall_s": wall, "open_s": rep["open_s"], "stop_s": stop_s,
+                "configure_s": conf_s, "statfs_blocks": [
+                    rep["statfs"][0], rep["statfs_configured"][0]]}
+            return sum(rec.values())
+
+        def sync_both_ways() -> str:
+            """On healthy volumes: a second `weed filer -store lsm` B on the
+            phase's master and `weed filer.sync -a F -b B -aPrefix
+            /data/tree/<sync_dir> -bPrefix SYNC_B_DIR` (cli-child). Every
+            file of the directory reaches B and reads back through B
+            sha256-equal; a file written on B under SYNC_B_DIR reaches F;
+            then neither change log grows (no echo). No K1 launch."""
+            part = [f for f in files if f[0].startswith(sync_dir + "/")]
+            nbytes = sum(size for _, size, _ in part)
+            fb = cl.start_filer(master, _free_ports(1)[0],
+                                os.path.join(root, "filer_b_store"))
+            up = cl.wait_up([fb], "/")[fb]
+            cl.reset_counts()
+            since = time.time_ns()
+            t0 = time.monotonic()
+            cl.start_daemon("sync", "filer.sync", "-a", filer, "-b", fb,
+                            "-aPrefix", f"/data/tree/{sync_dir}",
+                            "-bPrefix", SYNC_B_DIR)
+            pending = {rel for rel, _, _ in part}
+
+            def arrived() -> bool:
+                cl.check_running()
+                for rel in list(pending):
+                    q = urllib.parse.quote(f"/data/tree/{rel}", safe="")
+                    if http_call("GET", f"http://{fb}/__api/entry?path={q}",
+                                 timeout=30)[0] == 200:
+                        pending.discard(rel)
+                return not pending
+
+            _wait_for(arrived, "filer.sync to copy the directory to B",
+                      timeout=240.0)
+            a_to_b = time.monotonic() - t0
+            wall, took, routes, _ = _filer_gets(fb, part, 1)
+            import numpy as np
+            data = np.random.default_rng(seed + 28).bytes(1 << 20)
+            t0 = time.monotonic()
+            status = http_call("POST", f"http://{fb}{SYNC_B_DIR}/from_b.bin",
+                               body=data, timeout=60)[0]
+            if status >= 300:
+                raise AssertionError(f"POST to B: HTTP {status}")
+
+            def reached_f() -> bool:
+                cl.check_running()
+                st, body, _ = http_call(
+                    "GET", f"http://{filer}{SYNC_B_DIR}/from_b.bin",
+                    timeout=60)
+                return st == 200 and body == data
+
+            _wait_for(reached_f, "B's file to reach F", timeout=60.0)
+            b_to_a = time.monotonic() - t0
+
+            def logged() -> tuple[int, int]:
+                return tuple(len(http_json(
+                    "GET", f"http://{u}/__api/meta_events?since_ns={since}",
+                    timeout=30)["events"]) for u in (filer, fb))
+            # one sync pass each way is a 2 s long poll: two of them
+            # without a new event on either side show there is no echo
+            settled = logged()
+            time.sleep(4.5)
+            if logged() != settled:
+                raise AssertionError(f"filer.sync echoes: events "
+                                     f"{settled} -> {logged()}")
+            on_card("sync_both_ways")
+            stop_s = cl.stop_daemon("sync")
+            launches["sync_both_ways"] = cl.launched("sync_both_ways", {},
+                                                     counts, "sync", name)
+            repl["sync_both_ways"] = {
+                "b_startup_s": up, "a_to_b": _step(nbytes, a_to_b,
+                                                   files=len(part)),
+                "get_from_b_1": _step(nbytes, wall, **routes,
+                                      **_ms_stats(took)),
+                "b_to_a_s": b_to_a, "events_since_start": settled,
+                "stop_s": stop_s, "routes": routes_of("sync")}
+            return fb
+
+        def meta_route(removed: list) -> None:
+            """`weed filer.meta.tail -pathPrefix /data -n <events + 1>` and
+            `weed filer.meta.backup -filerPath /data`: each reads every
+            event of /data from F's change log, journalled across its
+            restart: one create for each directory and file the tree made,
+            one delete for each `fs.rm -r` removed, nothing else."""
+            creates = len(files) + len(tree_dirs(files))
+            deletes = len(removed) + len({d for d in tree_dirs(files)
+                                          if d.split("/")[0] == "a0"})
+            cl.reset_counts()
+            out, wall, routes = cl.cli_counted(
+                "filer.meta.tail", "-filer", filer, "-pathPrefix", "/data",
+                "-n", str(creates + deletes + 1))
+            lines = out.splitlines()
+
+            def kinds(events: list) -> tuple[int, int]:
+                return (sum(1 for e in events if e["old_entry"] is None
+                            and e["new_entry"] is not None),
+                        sum(1 for e in events if e["new_entry"] is None
+                            and e["old_entry"] is not None))
+
+            events = [json.loads(ln) for ln in lines[:-1]]
+            if json.loads(lines[-1]) != {"events": creates + deletes} or \
+                    kinds(events) != (creates, deletes):
+                raise AssertionError(f"filer.meta.tail: {lines[-1]}, "
+                                     f"(creates, deletes) {kinds(events)} "
+                                     f"of {(creates, deletes)}")
+            dump = os.path.join(root, "meta_backup.jsonl")
+            out, bwall = cl.cli("filer.meta.backup", "-filer", filer,
+                                "-filerPath", "/data", "-o", dump)
+            with open(dump) as f:
+                backed = [json.loads(ln) for ln in f]
+            if json.loads(out.splitlines()[-1]) != {
+                    "events": creates + deletes, "file": dump} or \
+                    kinds(backed) != (creates, deletes):
+                raise AssertionError(f"filer.meta.backup: {out[-500:]}, "
+                                     f"(creates, deletes) {kinds(backed)}")
+            launched("meta", {})
+            repl["meta"] = {"creates": creates, "deletes": deletes,
+                            "tail_s": wall, "tail_split": routes["seconds"],
+                            "backup_s": bwall}
+
+        def mq_route() -> None:
+            """The mq broker in F (`-mq -mqPort`): MQ_RECORDS seeded records
+            of 1-16 KiB on MQ_KEYS keys published through the port's
+            MqClient in one stream, then each partition replayed in publish
+            order (every record once, in its key's partition); its
+            segments past SEGMENT_MAX_BYTES are filer files whose chunks
+            are on the volume servers; `mq.topic.list` names the topic."""
+            import numpy as np
+
+            from seaweedfs_tpu_torch.mq.broker_grpc import MqClient
+            rng = np.random.default_rng(seed + 27)
+            recs = [(f"key{int(rng.integers(MQ_KEYS)):02d}",
+                     rng.bytes(int(rng.integers(1 << 10, (16 << 10) + 1))))
+                    for _ in range(MQ_RECORDS)]
+            nbytes = sum(len(v) for _, v in recs)
+            cl.reset_counts()
+            client = MqClient(f"127.0.0.1:{mq_port}", tls=None)
+            try:
+                parts = client.configure_topic(*MQ_TOPIC, MQ_PARTITIONS)
+                t0 = time.monotonic()
+                acks = client.publish(*MQ_TOPIC, recs)
+                pub = time.monotonic() - t0
+                if len(acks) != len(recs) or acks != sorted(set(acks)):
+                    raise AssertionError(f"mq publish: {len(acks)} acks "
+                                         f"for {len(recs)} records")
+                t0 = time.monotonic()
+                got = {p: list(client.subscribe(*MQ_TOPIC, partition=p))
+                       for p in range(parts)}
+                sub = time.monotonic() - t0
+            finally:
+                client.close()
+            part_of = {r["key"]: p for p, rs in got.items() for r in rs}
+            for p, rs in got.items():
+                want = [v for k, v in recs if part_of.get(k) == p]
+                if [r["value"] for r in rs] != want or \
+                        any(part_of[r["key"]] != p for r in rs):
+                    raise AssertionError(f"mq partition {p}: {len(rs)} "
+                                         f"records replayed, {len(want)} "
+                                         f"published")
+            if sum(map(len, got.values())) != len(recs):
+                raise AssertionError("mq: records lost or repeated")
+            segs = chunked = 0
+            for p in range(parts):
+                out = http_json("GET", f"http://{filer}/topics/"
+                                f"{MQ_TOPIC[0]}/{MQ_TOPIC[1]}/p{p:02d}/",
+                                timeout=30)
+                for e in out.get("Entries", []):
+                    segs += 1
+                    chunked += bool(e.get("chunks"))
+            if not chunked:
+                raise AssertionError("mq: no segment reached the volume "
+                                     "servers")
+            (topics,), list_s = shell("mq.topic.list")
+            want_topic = {"namespace": MQ_TOPIC[0], "topic": MQ_TOPIC[1],
+                          "partition_count": parts}
+            if want_topic not in topics["topics"]:
+                raise AssertionError(f"mq.topic.list: {topics}")
+            launched("mq", {})
+            repl["mq"] = {"records": len(recs), "keys": MQ_KEYS,
+                          "partitions": parts,
+                          "publish": _step(nbytes, pub),
+                          "replay": _step(nbytes, sub),
+                          "segments": segs, "chunked_segments": chunked,
+                          "topic_list_s": list_s}
+
         # 6. SIGKILL the server holding the most shards
         queue_at_drop = repair_status()
+        vids_at_kill = all_vids()
         held = {u: sum(len(p.get(u, [])) for p in placement.values())
                 for u in servers}
         victim = max(servers, key=lambda u: (held[u], u))
@@ -4908,7 +5526,7 @@ def filer_phase(work: str, total_mb: int, seed: int,
         t0 = time.monotonic()
         cl.kill(filer)
         cl.start_filer(master, int(filer.rsplit(":", 1)[1]), store_dir,
-                       grpc=True)
+                       grpc=True, mq_port=mq_port)
         steps["filer_restart"] = {
             "first_answer_s": cl.wait_up([filer], "/")[filer],
             "since_kill_s": time.monotonic() - t0}
@@ -4959,6 +5577,13 @@ def filer_phase(work: str, total_mb: int, seed: int,
         # master's repair queue rebuilds them once its 60 s grace from
         # the drop has run out
         s3_k1 = s3_degraded("get_degraded_1", 1)
+        # 8a'. the sync and mount routes, each on a directory of the tree
+        # of <= ROUTE_MAX_MB MiB: `weed filer.backup`, then WeedFS of
+        # `weed mount` (sync_route, mount_route)
+        route_k1 = sync_route() + mount_route()
+        if not route_k1:
+            raise AssertionError("the sync and mount routes reconstructed "
+                                 "nothing")
         for step, part in (
                 ("get_degraded_1_redirected",
                  [f for f in files if f[0] in redirected]),
@@ -5194,6 +5819,16 @@ def filer_phase(work: str, total_mb: int, seed: int,
                                 "seconds": time.monotonic() - t0}
         s3_launched("s3_delete", {u: recovered_all(u) - before[u]
                                   for u in cl.live_servers()})
+
+        # 13. on healthy volumes, after the last volume.fsck (which walks
+        # F alone, so B's chunks would be its orphans): a second filer B
+        # and `weed filer.sync` both ways, `weed filer.meta.tail` /
+        # `filer.meta.backup` of /data, the mq broker in F; nothing
+        # written since the kill moved by the tiering autopilot
+        filer_b = sync_both_ways()
+        meta_route(gone)
+        mq_route()
+        no_tier_move("routes", all_vids() - vids_at_kill)
         on_card("end")
     except BaseException:
         # what the phase measured before it failed, for the log
@@ -5201,6 +5836,7 @@ def filer_phase(work: str, total_mb: int, seed: int,
         emit("s3_failed", steps=s3)
         emit("stores_failed", families=stores, steps=stores_steps,
              k1=stores_k1)
+        emit("replication_failed", steps=repl)
         raise
     finally:
         codes = cl.stop()
@@ -5217,7 +5853,8 @@ def filer_phase(work: str, total_mb: int, seed: int,
                      else "s3" if u == gateway else f"volume{name[u]}"): t
                     for u, t in startup.items()},
          steps=steps, launches={k: v for k, v in launches.items()
-                                if not k.startswith("s3_")},
+                                if not k.startswith("s3_")
+                                and k not in ROUTE_STEPS},
          cuda_contexts=contexts, bodies_sha256_equal=True)
     emit("s3", s3_mb=s3_mb, objects=len(objs), bytes=s3_bytes,
          cold_objects=len(cold),
@@ -5235,6 +5872,13 @@ def filer_phase(work: str, total_mb: int, seed: int,
          volumes={v: {"server": name[vols[v][0]], "dat_bytes": vols[v][1],
                       "lost": lost[v]} for v in stores_vols},
          k1={**stores_k1, "launches": k1_stores},
+         bodies_sha256_equal=True)
+    k1_routes = {r: counts.of("gf_apply").get(r, 0) for r in ("sync", "mount")}
+    if not sum(k1_routes.values()):
+        raise AssertionError(f"sync and mount: K1 launches {k1_routes}")
+    emit("replication", sync_dir=f"/data/tree/{sync_dir}",
+         mount_dir=f"/data/tree/{mount_dir}", steps=repl, k1=k1_routes,
+         launches={k: launches[k] for k in ROUTE_STEPS if k in launches},
          bodies_sha256_equal=True)
 
 
@@ -5394,4 +6038,6 @@ if __name__ == "__main__":
         sys.exit(cli_child(sys.argv[2], sys.argv[3:]))
     if sys.argv[1:2] == ["db-child"]:  # the stores route's databases
         sys.exit(db_child(sys.argv[2]))
+    if sys.argv[1:2] == ["mount-child"]:  # the filer phase's mount route
+        sys.exit(mount_child(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -33,13 +33,12 @@ remote filer (``filer/remote_store.py``), ``server -filer -s3`` the S3
 gateway beside the embedded filer, and ``filer -ftp`` the FTP gateway in
 the filer's process. None of them takes a device.
 
-What needs a plane the port does not have yet raises NotImplementedError
-before any socket is bound, naming the slice of ROADMAP.md queue 1 it
-comes with: ``filer -mq``, ``mount``, ``fuse``, ``filer.sync``,
-``filer.replicate``, ``filer.backup``, ``filer.meta.*`` and
-``filer.remote.*`` (mount, mq and replication). Their parsers stay, so
-``-h`` and ``autocomplete`` list the reference's subcommands. It imports
-nothing of that package.
+``filer -mq`` serves the mq broker's gRPC plane in the filer's process;
+``filer.sync``, ``filer.replicate``, ``filer.backup``, ``filer.meta.*``
+and ``filer.remote.*`` follow a filer's change log (replication/);
+``mount`` and ``fuse`` serve WeedFS (mount/) over the kernel's FUSE
+protocol, with its gRPC admin plane announced to the master. None of
+them takes a device. It imports nothing of that package.
 """
 
 from __future__ import annotations
@@ -50,17 +49,8 @@ import sys
 import time
 
 from seaweedfs_tpu_torch.utils import clockctl
-from seaweedfs_tpu_torch.utils.unported import GATEWAY_SLICE, not_ported
 
 CODERS = ["torch", "mxu", "mesh", "cpu", "cpu-mt"]
-
-
-def _not_ported(what: str, slice_: str):
-    """A subcommand's handler for what the port does not have yet: it
-    raises before anything is bound."""
-    def cmd(args):
-        raise not_ported(what, slice_)
-    return cmd
 
 
 def _open_device(device: str) -> None:
@@ -241,8 +231,6 @@ def cmd_filer(args):
     """Standalone filer server (reference command/filer.go). It takes no
     device: the chunks live on the volume servers."""
     from seaweedfs_tpu_torch.server.filer_server import FilerServer
-    if args.mq:
-        _not_ported("filer -mq (mq/broker.py)", GATEWAY_SLICE)(args)
     fs = FilerServer(args.master, host=args.ip, port=args.port,
                      store=args.store, store_dir=args.dir,
                      default_replication=args.defaultReplication,
@@ -262,8 +250,32 @@ def cmd_filer(args):
         ftp.start()
         servers.insert(0, ftp)
         extra += f", ftp {ftp.url}"
+    if args.mq:
+        # mq broker rides the filer process (reference runs a separate
+        # `weed mq.broker` that dials the filer; this broker embeds it)
+        mq = _MqPlane(fs, args.ip, args.mqPort)
+        servers.insert(0, mq)
+        extra += f", mq grpc {args.ip}:{mq.port}"
     _serve_until_signal(*servers, ready=f"filer {fs.url} "
                         f"(store={args.store}){extra}")
+
+
+class _MqPlane:
+    """The mq broker over a filer with its gRPC plane, as `filer -mq`
+    serves it. Stopped before its filer: the plane stops taking
+    requests, then the broker flushes its open segments into the filer
+    (the reference's process exits with them in memory)."""
+
+    def __init__(self, fs, host: str, port: int):
+        from seaweedfs_tpu_torch.mq.broker import Broker
+        from seaweedfs_tpu_torch.mq.broker_grpc import start_broker_grpc
+        self.broker = Broker(fs)
+        self.server, self.port = start_broker_grpc(self.broker, host=host,
+                                                   port=port)
+
+    def stop(self) -> None:
+        self.server.stop(grace=None)
+        self.broker.flush()
 
 
 def cmd_gateway(args):
@@ -315,6 +327,193 @@ def cmd_iam(args):
         fs.stop()
         raise
     _serve_until_signal(iam, fs, ready=f"iam {iam.url} (filer {args.filer})")
+
+
+def cmd_filer_sync(args):
+    """Active-active sync between two filers (reference
+    command/filer_sync.go), or one-way with -oneWay."""
+    from seaweedfs_tpu_torch.replication.sync import (BidirectionalSync,
+                                                      FilerSync)
+    if args.oneWay:
+        from seaweedfs_tpu_torch.replication.sink import FilerSink
+        # one-way: -bPrefix is the DESTINATION prefix on B (in
+        # bidirectional mode it is B's source-path filter)
+        sync = FilerSync(args.a,
+                         FilerSink(args.b,
+                                   path_prefix=args.bPrefix.rstrip("/")),
+                         path_prefix=args.aPrefix)
+        print(f"filer.sync {args.a} -> {args.b} (one-way)")
+    else:
+        sync = BidirectionalSync(args.a, args.b,
+                                 a_prefix=args.aPrefix,
+                                 b_prefix=args.bPrefix)
+        print(f"filer.sync {args.a} <-> {args.b}")
+    sync.start(args.since)
+    _wait_forever()
+
+
+def cmd_filer_backup(args):
+    """Continuously back a filer subtree up to a sink (reference
+    command/filer_backup.go): -dir for a local mirror, or -endpoint +
+    -bucket for an S3-dialect target."""
+    from seaweedfs_tpu_torch.replication.sync import FilerSync
+    if args.endpoint:
+        from seaweedfs_tpu_torch.replication.sink import S3Sink
+        sink = S3Sink(args.endpoint, args.bucket, prefix=args.keyPrefix,
+                      access_key=args.accessKey, secret_key=args.secretKey)
+        target = f"s3 {args.endpoint}/{args.bucket}"
+    else:
+        from seaweedfs_tpu_torch.replication.sink import LocalSink
+        sink = LocalSink(args.dir)
+        target = args.dir
+    sync = FilerSync(args.filer, sink, path_prefix=args.filerPath)
+    print(f"filer.backup {args.filer}{args.filerPath} -> {target}")
+    sync.start(args.since)
+    _wait_forever()
+
+
+def cmd_filer_meta_backup(args):
+    from seaweedfs_tpu_torch.replication.sync import meta_backup
+    # one-shot dump by default; -follow keeps tailing like the
+    # reference's continuous backup daemon
+    n = meta_backup(args.filer, args.output,
+                    path_prefix=args.filerPath,
+                    stop_on_idle=not args.follow)
+    print(json.dumps({"events": n, "file": args.output}))
+
+
+def cmd_filer_meta_tail(args):
+    from seaweedfs_tpu_torch.replication.sync import meta_tail
+    n = meta_tail(args.filer, path_prefix=args.pathPrefix,
+                  max_events=args.n or None)
+    print(json.dumps({"events": n}))
+
+
+def cmd_filer_remote_sync(args):
+    """Write-back daemon for a remote mount (reference
+    command/filer_remote_sync.go)."""
+    from seaweedfs_tpu_torch.replication.remote_sync import FilerRemoteSync
+    sync = FilerRemoteSync(args.filer, args.dir)
+    print(f"filer.remote.sync {args.filer}{args.dir}")
+    sync.start()
+    _wait_forever()
+
+
+def cmd_filer_replicate(args):
+    """One-way replication daemon: consume a filer's event stream and
+    apply it to the sink enabled in replication.toml (reference
+    command/filer_replicate.go wiring replication/replicator.go)."""
+    import time as _time
+
+    from seaweedfs_tpu_torch.replication.sink import (
+        Replicator, make_sink_from_config)
+    from seaweedfs_tpu_torch.replication.sync import subscribe_meta_events
+    from seaweedfs_tpu_torch.utils import config as cfg
+    from seaweedfs_tpu_torch.utils import glog
+    conf = cfg.load_configuration("replication", required=True)
+    sink = make_sink_from_config(conf)
+    if sink is None:
+        raise SystemExit("replication.toml enables no sink "
+                         "(sink.filer/local/s3/azure)")
+    from seaweedfs_tpu_torch.utils.httpd import HttpError
+    rep = Replicator(sink, args.filer, path_prefix=args.path)
+    since = int(_time.time() * 1e9) if args.fromNow else args.sinceNs
+    print(f"filer.replicate {args.filer}{args.path} -> "
+          f"{sink.name} sink")
+    for ev in subscribe_meta_events(args.filer, since_ns=since,
+                                    path_prefix=args.path):
+        if ev is None:
+            continue
+        while True:
+            try:
+                rep.apply_event(ev)
+                break
+            except (ConnectionError, HttpError) as e:
+                # transient sink failure: retry the SAME event rather
+                # than silently diverging the replica (FilerSync holds
+                # its cursor for exactly this reason)
+                glog.warning("replicate: sink unavailable at %s, "
+                             "retrying: %s", ev.get("tsns"), e)
+                _time.sleep(2.0)
+            except Exception as e:
+                glog.error("replicate: event at %s failed "
+                           "permanently, skipping: %s",
+                           ev.get("tsns"), e)
+                break
+
+
+def cmd_filer_remote_gateway(args):
+    """Bucket-aware remote mirror daemon (reference
+    command/filer_remote_gateway.go): newly created buckets under
+    /buckets auto-mount onto the configured remote, deleted buckets
+    unmount, and local writes under /buckets continuously write back —
+    the S3-gateway-to-cloud bridge. The data/credential plane stays in
+    the filer (the /__api/remote endpoints), like filer.remote.sync."""
+    import time as _time
+
+    from seaweedfs_tpu_torch.replication.remote_sync import FilerRemoteSync
+    from seaweedfs_tpu_torch.replication.sync import subscribe_meta_events
+    from seaweedfs_tpu_torch.utils import glog
+    from seaweedfs_tpu_torch.utils.httpd import HttpError, http_json
+    import fnmatch
+
+    base = f"http://{args.filer}/__api/remote"
+
+    def mount_bucket(bucket: str) -> None:
+        if args.bucketPattern and not fnmatch.fnmatch(
+                bucket, args.bucketPattern):
+            return
+        # each bucket dir maps to a same-named path on the remote —
+        # works for any remote type (reference -createBucketAt keeps
+        # local and remote bucket names 1:1 the same way)
+        http_json("POST", f"{base}/mount",
+                  {"dir": f"/buckets/{bucket}",
+                   "remote_name": args.remote, "remote_path": bucket})
+
+    # mount every pre-existing bucket first, then watch for churn
+    try:
+        listing = http_json("GET", f"http://{args.filer}/buckets/")
+        existing = [e["FullPath"].rsplit("/", 1)[1]
+                    for e in listing.get("Entries", [])
+                    if e.get("IsDirectory")]
+    except (ConnectionError, HttpError):
+        existing = []
+    for bucket in existing:
+        try:
+            mount_bucket(bucket)
+        except (ConnectionError, HttpError) as e:
+            raise SystemExit(f"mounting bucket {bucket} failed: {e}")
+    print(f"filer.remote.gateway: mounted {existing}")
+    sync = FilerRemoteSync(args.filer, "/buckets")
+    sync.start(since_ns=int(_time.time() * 1e9))  # write-back plane
+    for ev in subscribe_meta_events(args.filer,
+                                    since_ns=int(_time.time() * 1e9),
+                                    path_prefix="/buckets"):
+        if ev is None:
+            continue
+        old, new = ev.get("old_entry"), ev.get("new_entry")
+
+        def bucket_of(entry):
+            if entry is None:
+                return None
+            p = entry["full_path"]
+            if (p.startswith("/buckets/") and p.count("/") == 2
+                    and entry.get("attr", {}).get("is_directory")):
+                return p
+            return None
+
+        created, deleted = bucket_of(new), bucket_of(old)
+        try:
+            if created and not deleted:
+                mount_bucket(created.rsplit("/", 1)[1])
+                glog.info("gateway: mounted new bucket %s", created)
+            elif deleted and new is None:
+                http_json("POST", f"{base}/unmount", {"dir": deleted})
+                glog.info("gateway: unmounted deleted bucket %s",
+                          deleted)
+        except (ConnectionError, HttpError) as e:
+            glog.warning("gateway: bucket churn for %s failed: %s",
+                         created or deleted, e)
 
 
 def cmd_filer_cat(args):
@@ -399,6 +598,89 @@ def cmd_master_follower(args):
     print(f"master.follower on {srv.host}:{srv.port}, "
           f"following {args.masters}", flush=True)
     _wait_forever()
+
+
+def cmd_fuse(args):
+    """fstab-style mount (reference command/fuse.go): options ride -o."""
+    opts = dict(kv.split("=", 1) for kv in args.o.split(",")
+                if "=" in kv)
+    args.filer = opts.get("filer", "")
+    args.master = opts.get("master", "127.0.0.1:9333")
+    args.store = opts.get("store", "remote")
+    cmd_mount(args)
+
+
+def open_mount(master: str, filer: str = "", store: str = "remote"):
+    """What `weed mount` serves, short of the kernel: WeedFS over the
+    cluster's filer (its metadata through the remote store adapter, so
+    the mount sees, and is seen by, every other client; other writers'
+    changes reach its meta cache through the filer's change log), or over
+    a private `store` when no filer is named or found through the master,
+    and its gRPC admin plane (mount.proto Configure) announced to the
+    master, where `mount.configure` finds it. Returns (WeedFS, the admin
+    plane's port, close), close undoing all of it."""
+    from seaweedfs_tpu_torch.mount.mount_grpc import start_mount_grpc
+    from seaweedfs_tpu_torch.mount.weedfs import WeedFS
+    from seaweedfs_tpu_torch.server.filer_server import FilerServer
+
+    filer_addr = filer
+    if not filer_addr and store == "remote":
+        # discover a filer from the master's cluster registry
+        from seaweedfs_tpu_torch.utils.httpd import http_json
+        try:
+            out = http_json(
+                "GET", f"http://{master}/cluster/nodes?type=filer")
+            nodes = out.get("cluster_nodes", [])
+            filer_addr = nodes[0]["url"] if nodes else ""
+        except ConnectionError:
+            filer_addr = ""
+    if filer_addr:
+        fs = FilerServer(master, store="remote", store_dir=filer_addr,
+                         announce=False)
+    else:
+        if store == "remote":
+            raise SystemExit("no filer found via the master; pass "
+                             "-filer host:port or -store memory/sqlite")
+        # an embedded (HTTP-less) filer: private metadata
+        fs = FilerServer(master, store=store)
+    w = WeedFS(fs)
+    if filer_addr:
+        w.meta_cache.attach_http(filer_addr)
+    # keep the server object referenced for the life of the mount — a
+    # dropped grpc.Server is garbage-collected and stops listening
+    admin_server, admin_port, announcing = start_mount_grpc(
+        w, master_url=master)
+
+    def close() -> None:
+        announcing.set()
+        admin_server.stop(grace=None)
+        w.close()
+        fs.reader_cache.close()
+        fs.filer.close()
+    return w, admin_port, close
+
+
+def cmd_mount(args):
+    """FUSE-mount a filer path (reference `weed mount -filer=...`): the
+    kernel protocol served in-process (mount/fuse_kernel.py) over
+    open_mount's WeedFS. Unmounting closes the mount's handles, its
+    admin plane and its filer view."""
+    from seaweedfs_tpu_torch.mount.fuse_kernel import FuseConnection
+    w, admin_port, close = open_mount(args.master, args.filer, args.store)
+    try:
+        conn = FuseConnection(w, args.mountpoint)
+    except BaseException:
+        close()
+        raise
+    print(f"mounted seaweedfs-tpu at {args.mountpoint} "
+          f"(admin grpc 127.0.0.1:{admin_port})", flush=True)
+    try:
+        conn.serve_forever(background=False)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        conn.close()
+        close()
 
 
 def cmd_autocomplete(args):
@@ -802,7 +1084,7 @@ def main(argv=None):
                      help="only replicate A -> B")
     fsy.add_argument("-since", type=int, default=0,
                      help="start cursor (ns); 0 = replay everything")
-    fsy.set_defaults(fn=_not_ported("filer.sync", GATEWAY_SLICE))
+    fsy.set_defaults(fn=cmd_filer_sync)
 
     frp = sub.add_parser(
         "filer.replicate",
@@ -813,7 +1095,7 @@ def main(argv=None):
                      help="start cursor (ns); 0 = replay everything")
     frp.add_argument("-fromNow", action="store_true",
                      help="skip history, replicate new events only")
-    frp.set_defaults(fn=_not_ported("filer.replicate", GATEWAY_SLICE))
+    frp.set_defaults(fn=cmd_filer_replicate)
 
     frg = sub.add_parser(
         "filer.remote.gateway",
@@ -824,7 +1106,7 @@ def main(argv=None):
                      help="configured remote name (remote.configure)")
     frg.add_argument("-bucketPattern", default="",
                      help="only bridge buckets matching this glob")
-    frg.set_defaults(fn=_not_ported("filer.remote.gateway", GATEWAY_SLICE))
+    frg.set_defaults(fn=cmd_filer_remote_gateway)
 
     mf = sub.add_parser(
         "master.follower",
@@ -853,7 +1135,7 @@ def main(argv=None):
     fbk.add_argument("-accessKey", default="")
     fbk.add_argument("-secretKey", default="")
     fbk.add_argument("-since", type=int, default=0)
-    fbk.set_defaults(fn=_not_ported("filer.backup", GATEWAY_SLICE))
+    fbk.set_defaults(fn=cmd_filer_backup)
 
     fct = sub.add_parser("filer.cat", help="print a filer file")
     fct.add_argument("-filer", default="127.0.0.1:8888")
@@ -874,21 +1156,20 @@ def main(argv=None):
     fmb.add_argument("-o", dest="output", default="filer_meta.jsonl")
     fmb.add_argument("-follow", action="store_true",
                      help="keep tailing instead of a one-shot dump")
-    # both read the meta log through replication/sync.py
-    fmb.set_defaults(fn=_not_ported("filer.meta.backup", GATEWAY_SLICE))
+    fmb.set_defaults(fn=cmd_filer_meta_backup)
 
     fmt_ = sub.add_parser("filer.meta.tail",
                           help="print filer meta events")
     fmt_.add_argument("-filer", default="127.0.0.1:8888")
     fmt_.add_argument("-pathPrefix", default="/")
     fmt_.add_argument("-n", type=int, default=16)
-    fmt_.set_defaults(fn=_not_ported("filer.meta.tail", GATEWAY_SLICE))
+    fmt_.set_defaults(fn=cmd_filer_meta_tail)
 
     frs = sub.add_parser("filer.remote.sync",
                          help="write-back daemon for a remote mount")
     frs.add_argument("-filer", default="127.0.0.1:8888")
     frs.add_argument("-dir", required=True, help="mounted directory")
-    frs.set_defaults(fn=_not_ported("filer.remote.sync", GATEWAY_SLICE))
+    frs.set_defaults(fn=cmd_filer_remote_sync)
 
     im = sub.add_parser("iam", help="standalone IAM API server")
     im.add_argument("-ip", default="127.0.0.1")
@@ -910,7 +1191,7 @@ def main(argv=None):
     fu.add_argument("mountpoint")
     fu.add_argument("-o", default="", help="comma-separated options: "
                     "filer=,master=,store=")
-    fu.set_defaults(fn=_not_ported("fuse", GATEWAY_SLICE))
+    fu.set_defaults(fn=cmd_fuse)
 
     u = sub.add_parser("upload")
     u.add_argument("-master", default="127.0.0.1:9333")
@@ -950,7 +1231,7 @@ def main(argv=None):
                     help="remote (cluster filer, default) or a private "
                          "memory/sqlite/lsm store")
     mt.add_argument("mountpoint")
-    mt.set_defaults(fn=_not_ported("mount", GATEWAY_SLICE))
+    mt.set_defaults(fn=cmd_mount)
 
     fx = sub.add_parser("fix")
     fx.add_argument("base", help="volume base path (no extension)")

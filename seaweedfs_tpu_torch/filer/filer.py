@@ -6,8 +6,12 @@ garbage collection on delete/overwrite, and a metadata change log feeding
 subscriptions (the CDC backbone of filer.sync / meta.backup / mount cache
 invalidation — reference filer_notify.go + util/log_buffer).
 
-The port's copy of seaweedfs_tpu/filer/filer.py, the same code;
-it imports nothing of that package.
+The port's copy of seaweedfs_tpu/filer/filer.py, the same code, plus
+a durable mode of the persisted MetaLog (``durable=True``, which a Filer
+given a ``meta_log_dir`` uses): every event written through to its
+segment as it is logged, and only the newest segments kept, so a filer
+server on a local store keeps its change log across a kill without the
+directory growing for ever. It imports nothing of that package.
 """
 
 from __future__ import annotations
@@ -51,12 +55,17 @@ class MetaLog:
     persistence of every event as JSONL segments in a directory (the
     reference persists to /topics/.system/log files inside the filer,
     filer_notify_append.go; readers replay persisted segments when their
-    cursor predates the ring, filer_notify.go ReadPersistedLogBuffer)."""
+    cursor predates the ring, filer_notify.go ReadPersistedLogBuffer).
+
+    durable=True (the port's filer server on a local store): each event is
+    written and flushed to the open segment as it is logged, so a killed
+    process loses none; a segment holds SEGMENT_EVENTS events and only
+    the newest ``capacity // SEGMENT_EVENTS + 1`` segments are kept."""
 
     SEGMENT_EVENTS = 4096
 
     def __init__(self, capacity: int = 65536,
-                 persist_dir: "Optional[str]" = None):
+                 persist_dir: "Optional[str]" = None, durable: bool = False):
         self.capacity = capacity
         self.events: list[MetaLogEvent] = []
         self._lock = threading.Lock()
@@ -64,9 +73,17 @@ class MetaLog:
         self.persist_dir = persist_dir
         self._seg_buf: list[str] = []
         self.listeners: list[Callable[[MetaLogEvent], None]] = []
+        self.durable = durable
+        self._seg_file = None
+        self._seg_count = 0
+        # newest persisted event when the log opened: a reader behind it
+        # has events to replay although the ring is still empty
+        self._persisted_tsns = 0
         if persist_dir:
             import os
             os.makedirs(persist_dir, exist_ok=True)
+            if durable:
+                self._persisted_tsns = self._newest_persisted_tsns()
 
     def append(self, ev: MetaLogEvent) -> None:
         with self._cond:
@@ -75,9 +92,13 @@ class MetaLog:
                 self.events = self.events[-self.capacity:]
             if self.persist_dir:
                 import json
-                self._seg_buf.append(json.dumps(ev.to_dict()))
-                if len(self._seg_buf) >= self.SEGMENT_EVENTS:
-                    self._flush_segment_locked()
+                line = json.dumps(ev.to_dict())
+                if self.durable:
+                    self._write_through_locked(ev.tsns, line)
+                else:
+                    self._seg_buf.append(line)
+                    if len(self._seg_buf) >= self.SEGMENT_EVENTS:
+                        self._flush_segment_locked()
             self._cond.notify_all()
         for listener in list(self.listeners):
             try:
@@ -95,10 +116,49 @@ class MetaLog:
             f.write("\n".join(self._seg_buf) + "\n")
         self._seg_buf = []
 
+    def _segments(self) -> list[str]:
+        import os
+        return sorted(n for n in os.listdir(self.persist_dir)
+                      if n.endswith(".jsonl"))
+
+    def _write_through_locked(self, tsns: int, line: str) -> None:
+        import os
+        if self._seg_file is None or self._seg_count >= self.SEGMENT_EVENTS:
+            if self._seg_file is not None:
+                self._seg_file.close()
+            keep = self.capacity // self.SEGMENT_EVENTS + 1
+            for name in self._segments()[:-(keep - 1) or None]:
+                try:
+                    os.remove(os.path.join(self.persist_dir, name))
+                except OSError:
+                    pass
+            self._seg_file = open(
+                os.path.join(self.persist_dir, f"{tsns}.jsonl"), "a")
+            self._seg_count = 0
+        self._seg_file.write(line + "\n")
+        self._seg_file.flush()
+        self._seg_count += 1
+
+    def _newest_persisted_tsns(self) -> int:
+        import json
+        import os
+        for name in reversed(self._segments()):
+            with open(os.path.join(self.persist_dir, name)) as f:
+                lines = f.read().splitlines()
+            for line in reversed(lines):
+                try:
+                    return json.loads(line)["tsns"]
+                except (ValueError, KeyError):
+                    continue  # a line torn by a kill mid-write
+        return 0
+
     def flush(self) -> None:
         with self._lock:
             if self.persist_dir:
                 self._flush_segment_locked()
+                if self._seg_file is not None:
+                    self._seg_file.close()
+                    self._seg_file = None
 
     def read_since(self, tsns: int, path_prefix: str = "/",
                    limit: int = 1024,
@@ -167,11 +227,13 @@ class MetaLog:
         prefix-filtered subscribers advance their cursor past
         non-matching events instead of re-scanning them forever."""
         with self._lock:
-            return self.events[-1].tsns if self.events else 0
+            return self.events[-1].tsns if self.events \
+                else self._persisted_tsns
 
     def wait_for_events(self, tsns: int, timeout: float = 10.0) -> bool:
         with self._cond:
-            if any(e.tsns > tsns for e in self.events):
+            if tsns < self._persisted_tsns or \
+                    any(e.tsns > tsns for e in self.events):
                 return True
             return self._cond.wait(timeout)
 
@@ -201,7 +263,8 @@ class Filer:
             self.store.invalidate_fn = (
                 lambda p: cache.invalidate(p) if p is not None
                 else cache.clear())
-        self.meta_log = MetaLog(persist_dir=meta_log_dir)
+        # a persisted log is a server's: durable (written through, bounded)
+        self.meta_log = MetaLog(persist_dir=meta_log_dir, durable=True)
         self.delete_chunks_fn = delete_chunks_fn
         self.read_chunk_fn = read_chunk_fn  # to expand manifest chunks on GC
         self._lock = threading.RLock()

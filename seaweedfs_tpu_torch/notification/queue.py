@@ -7,10 +7,10 @@ log, and JSONL-file queues; external-broker backends implement the same
 two methods.
 
 The port's copy of seaweedfs_tpu/notification/queue.py: the SPI, the
-in-memory, log and file queues and ``attach_to_filer``. The Kafka, SQS and
-Pub/Sub queues are not ported yet: a notification.toml that enables one
-makes ``make_queue_from_config`` raise NotImplementedError naming the
-rest of the gateway slice. It imports nothing of that package.
+in-memory, log and file queues, ``attach_to_filer``, and
+``make_queue_from_config`` over them and the Kafka, SQS and Pub/Sub
+queues (notification/{kafka,sqs,pubsub}_queue.py). It imports nothing of
+that package.
 """
 
 from __future__ import annotations
@@ -20,8 +20,6 @@ import json
 import queue
 import threading
 from typing import Optional
-
-from seaweedfs_tpu_torch.utils.unported import GATEWAY_SLICE, not_ported
 
 
 class MessageQueue(abc.ABC):
@@ -88,11 +86,30 @@ def make_queue_from_config() -> Optional[MessageQueue]:
         return LogQueue()
     if root.get("file", {}).get("enabled"):
         return FileQueue(root["file"].get("path", "./notifications.jsonl"))
-    for section, name in (("kafka", "Kafka"), ("aws_sqs", "SQS"),
-                          ("google_pub_sub", "Pub/Sub")):
-        if root.get(section, {}).get("enabled"):
-            raise not_ported(f"the {name} notification queue",
-                             GATEWAY_SLICE)
+    if root.get("kafka", {}).get("enabled"):
+        from seaweedfs_tpu_torch.notification.kafka_queue import KafkaQueue
+        k = root["kafka"]
+        addr = k.get("address", "127.0.0.1:9092")
+        if ":" in addr:
+            host, _, port_s = addr.rpartition(":")
+            port = int(port_s)
+        else:
+            host, port = addr, 9092
+        return KafkaQueue(host or "127.0.0.1", port,
+                          topic=k.get("topic", "seaweedfs_meta"))
+    if root.get("aws_sqs", {}).get("enabled"):
+        from seaweedfs_tpu_torch.notification.sqs_queue import SqsQueue
+        s = root["aws_sqs"]
+        return SqsQueue(s["sqs_queue_url"],
+                        access_key=s.get("access_key", ""),
+                        secret_key=s.get("secret_key", ""),
+                        region=s.get("region", "us-east-1"))
+    if root.get("google_pub_sub", {}).get("enabled"):
+        from seaweedfs_tpu_torch.notification.pubsub_queue import PubSubQueue
+        g = root["google_pub_sub"]
+        return PubSubQueue(
+            g.get("endpoint", "https://pubsub.googleapis.com"),
+            g["project_id"], g["topic"], token=g.get("token", ""))
     return None
 
 

@@ -16,10 +16,9 @@ A remote location is written "name/bucket/path" (reference
 remote_storage.ParseLocation / RemoteStorageLocation proto).
 
 The port's copy of seaweedfs_tpu/remote_storage/remote_storage.py: the
-SPI, RemoteConf, the "local" backend and the S3-dialect client
-(remote_storage/s3_client.py). The Azure client is not ported yet:
-``make_remote_client`` raises NotImplementedError for it, naming the
-rest of the gateway slice. It imports nothing of that package.
+SPI, RemoteConf, the "local" backend, the S3-dialect client
+(remote_storage/s3_client.py) and the Azure Blob client
+(remote_storage/azure_client.py). It imports nothing of that package.
 """
 
 from __future__ import annotations
@@ -29,8 +28,6 @@ import dataclasses
 import json
 import os
 from typing import Callable, Iterator, Optional
-
-from seaweedfs_tpu_torch.utils.unported import GATEWAY_SLICE, not_ported
 
 
 @dataclasses.dataclass
@@ -187,9 +184,16 @@ def make_remote_client(conf: RemoteConf) -> RemoteStorageClient:
                         access_key=conf.access_key,
                         secret_key=conf.secret_key, region=conf.region)
     if conf.type == "azure":
-        # the Azure Blob client comes with the rest of the gateway slice
-        raise not_ported(f"the {conf.type} remote storage client",
-                         GATEWAY_SLICE)
+        # Blob REST protocol with SharedKey signing, spoken directly
+        # (reference wraps the Azure SDK): access_key = account name,
+        # secret_key = base64 account key, bucket = container
+        from seaweedfs_tpu_torch.remote_storage.azure_client import AzureRemote
+        endpoint = conf.endpoint or \
+            f"https://{conf.access_key}.blob.core.windows.net"
+        if not conf.bucket:
+            raise ValueError("azure remote needs a container (bucket)")
+        return AzureRemote(endpoint, conf.bucket, conf.access_key,
+                           conf.secret_key)
     raise NotImplementedError(
         f"remote type {conf.type!r}: no S3-compatible dialect and no "
         "cloud SDK in this environment; "

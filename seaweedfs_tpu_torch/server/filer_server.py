@@ -13,17 +13,17 @@ Functional equivalent of reference weed/server/filer_server*.go:
 
 The port's copy of seaweedfs_tpu/server/filer_server.py: every route, on
 the port's filer, client and HTTP core. It takes no device: the card is
-reached through the volume servers that hold the chunks. What the port
-does not have yet raises NotImplementedError naming its slice: the
-wire-protocol stores (``make_store``), and the Azure remote client,
-which the ``/__api/remote/*`` routes answer as 501. ``grpc_port`` starts
-the filer_pb gRPC plane (server/filer_grpc.py) with its S3 ``Configure``
-service. One
-difference on purpose: chunk GC is one worker draining a queue, which
-retries a shed or failed delete with backoff (``GC_ATTEMPTS``) and counts
-every outcome in ``chunk_gc_total`` (``abandoned``: a chunk left behind),
-where the JAX filer starts a thread per deleted entry and tries each fid
-once. It imports nothing of that package.
+reached through the volume servers that hold the chunks. ``grpc_port``
+starts the filer_pb gRPC plane (server/filer_grpc.py) with its S3
+``Configure`` service. Two differences on purpose: chunk GC is one worker
+draining a queue, which retries a shed or failed delete with backoff
+(``GC_ATTEMPTS``) and counts every outcome in ``chunk_gc_total``
+(``abandoned``: a chunk left behind), where the JAX filer starts a thread
+per deleted entry and tries each fid once; and a filer on a local store
+(lsm, sqlite) persists its change log in ``<store_dir>/filer_meta_log``,
+every event written through (filer/filer.py MetaLog ``durable``), and
+replays it to a reader after a restart, where the JAX filer starts with
+an empty log. It imports nothing of that package.
 """
 
 from __future__ import annotations
@@ -175,10 +175,15 @@ class FilerServer:
             db_host, _, db_port = addr.rpartition(":")
             kwargs["host"] = db_host or "127.0.0.1"
             kwargs["port"] = int(db_port)
+        # a local store keeps the change log beside it across restarts
+        # (the JAX filer loses it)
         self.filer = Filer(make_store(store, **kwargs),
                            delete_chunks_fn=self._delete_chunks,
                            read_chunk_fn=self._read_chunk,
-                           entry_cache=entry_cache)
+                           entry_cache=entry_cache,
+                           meta_log_dir=os.path.join(
+                               store_dir or ".", "filer_meta_log")
+                           if store in ("lsm", "sqlite") else None)
         # horizontal metadata scale-out: when sharding=True this filer
         # is one member of a consistent-hash ring over DIRECTORIES
         # (filer/shard_ring.py) — it serves only the namespace slices
@@ -807,7 +812,7 @@ class FilerServer:
                 ("POST", "uncache", self._api_remote_uncache),
                 ("POST", "writeback", self._api_remote_writeback),
                 ("POST", "rm", self._api_remote_rm)):
-            r(method, f"/__api/remote/{op}", self._not_ported_501(handler))
+            r(method, f"/__api/remote/{op}", handler)
         for method in ("POST", "PUT"):
             r(method, "/.*", self._timed(
                 "write", self._signed(self._handle_write)))
@@ -815,18 +820,6 @@ class FilerServer:
         r("HEAD", "/.*", self._timed("head", self._handle_read))
         r("DELETE", "/.*", self._timed(
             "delete", self._signed(self._handle_delete)))
-
-    @staticmethod
-    def _not_ported_501(handler):
-        """A route that can reach a client the port does not have yet
-        (the Azure remote client) answers 501 with the slice it comes
-        with."""
-        def wrapped(req: Request) -> Response:
-            try:
-                return handler(req)
-            except NotImplementedError as e:
-                return Response({"error": str(e)}, status=501)
-        return wrapped
 
     def _handle_metrics(self, req: Request) -> Response:
         return Response(self.metrics.expose_text(),

@@ -4,11 +4,10 @@ The port's copy of seaweedfs_tpu/shell/repl.py: the same commands, help
 text and output, run on the port's ShellContext, with the ``fs.*`` family
 and ``volume.fsck`` on the port's filer, the ``remote.*`` family on the
 filer's remote mounts and the ``s3.*`` family on the gateway's filer
-entries. What needs a plane the port does not have yet raises
-NotImplementedError naming the rest of the gateway slice:
-``fs.meta.tail`` (replication/sync.py), the ``mq.*`` family, and
-``mount.configure`` (mount/ with its gRPC admin plane). It takes no
-device and imports nothing of that package.
+entries; ``fs.meta.tail`` through replication/sync.py, ``mq.topic.list``
+on the broker's topics in the filer, and ``mount.configure`` over each
+mount's gRPC admin plane (mount/mount_grpc.py). It takes no device and
+imports nothing of that package.
 """
 
 from __future__ import annotations
@@ -17,7 +16,6 @@ import json
 import shlex
 
 from seaweedfs_tpu_torch.shell.commands import ShellContext
-from seaweedfs_tpu_torch.utils.unported import GATEWAY_SLICE, not_ported
 
 HELP = """commands:
   fs.ls/cat/rm/mkdir/mv/du/tree <path> [..]   filer namespace ops
@@ -134,9 +132,6 @@ def _fs_command(sh: ShellContext, cmd: str, args: list[str],
 
     from seaweedfs_tpu_torch.shell.fs_commands import FsContext
     op = cmd[3:]
-    if op == "meta.tail":
-        # the reference tails through replication/sync.py
-        raise not_ported("fs.meta.tail", GATEWAY_SLICE)
     fsc = FsContext(_find_filer(sh))
     cwd = getattr(sh, "cwd", "/")
 
@@ -219,6 +214,16 @@ def _fs_command(sh: ShellContext, cmd: str, args: list[str],
         return http_json(
             "GET", f"http://{fsc.filer_url}/__api/entry?path="
                    f"{urllib.parse.quote(args[-1], safe='')}")
+    if op == "meta.tail":
+        from seaweedfs_tpu_torch.replication.sync import meta_tail
+        # `-n` is the dry-run switch to _parse_flags, which never gives
+        # it a value (the JAX REPL so always tails 16): read it here
+        i = args.index("-n") + 1 if "-n" in args else len(args)
+        n = meta_tail(fsc.filer_url,
+                      path_prefix=flags.get("pathPrefix", "/"),
+                      max_events=int(args[i]) if i < len(args) else 16,
+                      aggregated="-aggregated" in args)
+        return {"events": n}
     if op == "configure":
         # per-path storage rules (reference command_fs_configure.go)
         from seaweedfs_tpu_torch.utils.httpd import http_json
@@ -296,9 +301,6 @@ def run_command(sh: ShellContext, line: str):
         if op == "status":
             return http_json("GET", f"{base}/status")
         raise ValueError(f"unknown remote command {op!r}")
-    if cmd.startswith("mq."):
-        # the message queue broker behind this family
-        raise not_ported(cmd, GATEWAY_SLICE)
     if cmd == "volume.list":
         return sh.volume_list()
     if cmd == "volume.check.disk":
@@ -338,10 +340,51 @@ def run_command(sh: ShellContext, line: str):
         return sh.volume_tail(int(flags["volumeId"]),
                               since_ns=int(flags.get("since", 0)))
     if cmd == "mount.configure":
-        # the reference pushes the quota over each mount's gRPC admin
-        # plane (mount/mount_grpc.py)
-        raise not_ported("mount.configure (mount/ with its gRPC admin "
-                         "plane)", GATEWAY_SLICE)
+        # push a statfs quota to every live mount via its admin plane
+        # (reference command_mount_configure.go -> mount_pb.Configure)
+        from seaweedfs_tpu_torch.mount.mount_grpc import MountAdminClient
+        from seaweedfs_tpu_torch.utils.httpd import http_json
+        out = http_json(
+            "GET", f"http://{sh.master_url}/cluster/nodes?type=mount")
+        mounts = out.get("cluster_nodes", [])
+        capacity = int(flags.get("collectionCapacity", -1))
+        results = {}
+        for node in mounts:
+            # a mount that died within the registry's 60s TTL must not
+            # abort configuring the live ones
+            client = MountAdminClient(node["url"])
+            try:
+                results[node["url"]] = client.configure(capacity)
+            except Exception as e:
+                results[node["url"]] = f"unreachable: {e.__class__.__name__}"
+            finally:
+                client.close()
+        return {"mounts": results}
+    if cmd == "mq.topic.list":
+        # topics live under /topics/<ns>/<topic>/.conf in the filer
+        # (reference command_mq_topic_list.go asks the broker; the broker
+        # state IS the filer tree, so the shell reads it directly)
+        from seaweedfs_tpu_torch.shell.fs_commands import FsContext
+        fsc = FsContext(_find_filer(sh))
+        topics = []
+        try:
+            namespaces = fsc.ls("/topics")
+        except Exception:
+            namespaces = []
+        for nse in namespaces:
+            ns = nse["FullPath"].rsplit("/", 1)[-1]
+            for te in fsc.ls(nse["FullPath"]):
+                if not te.get("IsDirectory"):
+                    continue
+                try:
+                    conf = json.loads(fsc.cat(te["FullPath"] + "/.conf"))
+                except FileNotFoundError:
+                    continue
+                topics.append({
+                    "namespace": ns,
+                    "topic": te["FullPath"].rsplit("/", 1)[-1],
+                    "partition_count": conf.get("partition_count", 0)})
+        return {"topics": topics}
     if cmd == "cluster.raft.ps":
         from seaweedfs_tpu_torch.utils.httpd import http_json
         return http_json("GET",

@@ -448,7 +448,7 @@ def test_repl_fs_commands_and_volume_fsck(tmp_path, capsys):
         st.stop()
 
 
-# ---------------- what stays unported ----------------
+# ---------------- wire stores and the remote routes ----------------
 
 
 @pytest.mark.parametrize("kw", [
@@ -470,9 +470,10 @@ def test_unported_filer_options_raise_before_binding(kw, monkeypatch):
 
 
 def test_remote_routes_answer_501_for_cloud_clients(tmp_path):
-    """/__api/remote/* work over a local remote and over an S3 remote
-    (the port's own gateway on the same filer), and answer 501, naming
-    the rest of the gateway slice, where they reach the Azure client."""
+    """/__api/remote/* work over a local remote, over an S3 remote (the
+    port's own gateway on the same filer) and over an Azure remote (the
+    port's MiniAzureServer, SharedKey-signed), which answered 501 until
+    the Azure client was ported."""
     from seaweedfs_tpu_torch.gateway.s3_server import S3Server
     st = _Stack(PORT, tmp_path, store="memory")
     gw = S3Server(st.filer)
@@ -505,15 +506,26 @@ def test_remote_routes_answer_501_for_cloud_clients(tmp_path):
         out = st.json("POST", "/__api/remote/mount_buckets",
                       {"remote_name": "cloud"})
         assert sorted(out["mounted"]) == ["other", "rb"]
-        st.json("POST", "/__api/remote/configure",
-                {"name": "blob", "type": "azure", "endpoint":
-                 "http://127.0.0.1:1", "bucket": "b", "access_key": "a",
-                 "secret_key": "s"})
-        st.json("POST", "/__api/remote/mount",
-                {"dir": "/am", "remote_name": "blob"})
-        status, out, _ = st.call("POST", "/__api/remote/pull",
-                                 json_body={"dir": "/am"})
-        assert status == 501 and b"gateway slice" in out
+        import base64
+
+        from seaweedfs_tpu_torch.remote_storage.azure_client import (
+            AzureRemote, MiniAzureServer)
+        key = base64.b64encode(b"blob-account-key").decode()
+        az = MiniAzureServer(account="acct", key_b64=key).start()
+        try:
+            AzureRemote(az.url, "b", "acct", key).write_file(
+                "dir/blob.bin", b"azure bytes")
+            st.json("POST", "/__api/remote/configure",
+                    {"name": "blob", "type": "azure", "endpoint": az.url,
+                     "bucket": "b", "access_key": "acct",
+                     "secret_key": key})
+            st.json("POST", "/__api/remote/mount",
+                    {"dir": "/am", "remote_name": "blob"})
+            assert st.json("POST", "/__api/remote/pull",
+                           {"dir": "/am"}) == {"pulled": 1}
+            assert st.call("GET", "/am/dir/blob.bin")[1] == b"azure bytes"
+        finally:
+            az.stop()
     finally:
         gw.stop()
         st.stop()

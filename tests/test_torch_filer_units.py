@@ -7,14 +7,15 @@ directory written by each package opened by the other, the reader and
 chunk caches, the cipher, the ledger auto-capper, the notification queues
 and remote mounts over a local remote. Each case runs the same script on
 both packages and compares what they return; the wire stores' names and
-aliases resolve through make_store, and the unported queues and the Azure
-remote client raise NotImplementedError naming their slice.
+aliases resolve through make_store, notification.toml makes each package
+the same external queue and the azure remote type the same Azure client.
 (ref tests/test_filer.py, test_filer_depth.py, test_metalog_persist.py,
 test_reader_cache.py, test_shard_scaleout.py's autocap cases,
 test_cipher_ftp.py's cipher cases, test_remote_storage.py.)
 """
 
 import json
+import os
 import threading
 import time
 import types
@@ -258,6 +259,59 @@ def test_metalog_replays_persisted_segments(tmp_path):
         log = pkg.filer.MetaLog(capacity=4, persist_dir=str(tmp_path / d))
         assert [e.to_dict() for e in log.read_since(0, "/", limit=100)] \
             == got[0]
+
+
+def _durable_log(d, capacity=10):
+    log = PORT.filer.MetaLog(capacity=capacity, persist_dir=str(d),
+                             durable=True)
+    log.SEGMENT_EVENTS = 5
+    return log
+
+
+def test_durable_metalog_writes_every_event_through(tmp_path):
+    """A durable log loses no event to a kill: with nothing flushed or
+    closed, a second log on the directory replays every event, in the
+    same dicts the buffered log of either package persists, and a
+    reader of it neither waits nor skips past them."""
+    log = _durable_log(tmp_path / "durable")
+    evs = [PORT.filer.MetaLogEvent(f"/d{i % 3}", None,
+                                   {"full_path": f"/d{i % 3}/f{i}"},
+                                   tsns=1000 + i) for i in range(12)]
+    for ev in evs:
+        log.append(ev)
+    fresh = _durable_log(tmp_path / "durable", capacity=100)
+    assert fresh.latest_tsns() == 1011
+    t0 = time.monotonic()
+    assert fresh.wait_for_events(0, timeout=5.0)
+    assert time.monotonic() - t0 < 1.0
+    got = [e.to_dict() for e in fresh.read_since(0, "/", limit=100)]
+    assert got == [e.to_dict() for e in evs]
+    # the JAX package's log replays the durable segments as its own
+    jlog = JAX.filer.MetaLog(capacity=4, persist_dir=str(tmp_path / "durable"))
+    assert [e.to_dict() for e in jlog.read_since(0, "/", limit=100)] == got
+
+
+@pytest.mark.parametrize("restarts", [0, 3])
+def test_durable_metalog_directory_stays_bounded(tmp_path, restarts):
+    """Past `capacity` events a durable log drops its oldest segments:
+    capacity // SEGMENT_EVENTS + 1 of them stay (3 here), so the
+    directory holds at most 15 events after 200, and a fresh log replays
+    the newest of them in order (restarts: logs opened one after another
+    on the directory, each starting its own segment)."""
+    d = tmp_path / "bounded"
+    n, per = 200, 200 // (restarts + 1)
+    log = None
+    for i in range(n):
+        if i % per == 0:
+            if log is not None:
+                log.flush()
+            log = _durable_log(d)
+        log.append(PORT.filer.MetaLogEvent("/b", None, {"i": i},
+                                           tsns=10_000 + i))
+        assert len(os.listdir(d)) <= 3
+    kept = [e.tsns for e in _durable_log(d, 100).read_since(0, "/",
+                                                            limit=1000)]
+    assert kept == list(range(10_000 + n - 15, 10_000 + n))
 
 
 def _namespace_script(pkg, f):
@@ -630,19 +684,36 @@ def test_notification_queues_and_attach_to_filer(tmp_path, monkeypatch):
     got = run(PORT, tmp_path / "p")
     assert got == run(JAX, tmp_path / "j")
     assert ("/n/a", "/n", "/n/a") in got[0]
-    # notification.toml enabling an external queue raises naming the
-    # gateway slice; the log and file queues are made from it
+    # notification.toml makes the log and file queues and, for the
+    # external ones, the same client in both packages (kafka dials at
+    # once: a listener stands in for the broker)
+    import socket
     monkeypatch.chdir(tmp_path)
     for section, cls in (("log", p_queue.LogQueue),
                          ("file", p_queue.FileQueue)):
         (tmp_path / "notification.toml").write_text(
             f"[notification.{section}]\nenabled = true\n")
         assert isinstance(p_queue.make_queue_from_config(), cls)
-    for section in ("kafka", "aws_sqs", "google_pub_sub"):
-        (tmp_path / "notification.toml").write_text(
-            f"[notification.{section}]\nenabled = true\n")
-        with pytest.raises(NotImplementedError, match="gateway slice"):
-            p_queue.make_queue_from_config()
+    with socket.socket() as lsn:
+        lsn.bind(("127.0.0.1", 0))
+        lsn.listen(4)
+        kafka = f'address = "127.0.0.1:{lsn.getsockname()[1]}"\n'
+        for section, extra, cls in (
+                ("kafka", kafka, "KafkaQueue"),
+                ("aws_sqs", 'sqs_queue_url = "http://127.0.0.1:1/q/e"\n',
+                 "SqsQueue"),
+                ("google_pub_sub", 'project_id = "p"\ntopic = "t"\n',
+                 "PubSubQueue")):
+            (tmp_path / "notification.toml").write_text(
+                f"[notification.{section}]\nenabled = true\n{extra}")
+            got = p_queue.make_queue_from_config()
+            want = j_queue.make_queue_from_config()
+            try:
+                assert type(got).__name__ == type(want).__name__ == cls
+                assert sorted(vars(got)) == sorted(vars(want))
+            finally:
+                got.close()
+                want.close()
 
 
 # ---------------- remote mounts ----------------
@@ -652,8 +723,8 @@ def test_remote_mount_over_a_local_remote(tmp_path):
     """remote.configure / mount / meta.sync / cache / uncache / write-back
     over a "local" remote, the same in both packages; the persisted
     configuration reads across packages; the S3-dialect types make the
-    same S3Remote in both packages, and the Azure client raises naming
-    the rest of the gateway slice in the port."""
+    same S3Remote in both packages, and the azure type the same
+    AzureRemote."""
     def run(pkg, name):
         root = tmp_path / f"remote_{name}"
         (root / "sub").mkdir(parents=True)
@@ -708,7 +779,9 @@ def test_remote_mount_over_a_local_remote(tmp_path):
         assert (got.endpoint, got.bucket, got.host) == \
             (want.endpoint, want.bucket, want.host)
         assert vars(got.signer) == vars(want.signer)
-    with pytest.raises(NotImplementedError, match="gateway slice"):
-        p_remote.make_remote_client(p_remote.RemoteConf(
-            name="x", type="azure", endpoint="http://127.0.0.1:1",
-            bucket="b", access_key="a", secret_key="s"))
+    kw = dict(name="x", type="azure", endpoint="http://127.0.0.1:1",
+              bucket="b", access_key="a", secret_key="czNjcmV0")
+    got = p_remote.make_remote_client(p_remote.RemoteConf(**kw))
+    want = j_remote.make_remote_client(j_remote.RemoteConf(**kw))
+    assert type(got).__name__ == type(want).__name__ == "AzureRemote"
+    assert vars(got) == vars(want)

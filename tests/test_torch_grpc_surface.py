@@ -38,7 +38,7 @@ from seaweedfs_tpu_torch.server.volume_server import VolumeServer
 from seaweedfs_tpu_torch.utils.httpd import http_call, http_json
 
 PORTED_PROTOS = ("master", "volume_server", "filer", "etcdkv", "remote",
-                 "s3", "iam")
+                 "s3", "iam", "mount", "mq")
 
 
 @pytest.fixture
@@ -385,9 +385,8 @@ def test_remote_conf_proto_persistence_and_json_fallback(stack):
 
 
 def test_proto_file_count():
-    """The port carries the protos of the planes it has ported, each
-    beside its stub (the rest of the gateway slice brings mount and
-    mq)."""
+    """The port carries the protos of every plane, each beside its stub:
+    all nine of the JAX package's."""
     port_dir = pathlib.Path(pb_pkg.__file__).parent
     protos = {p.stem for p in port_dir.glob("*.proto")}
     assert protos == set(PORTED_PROTOS)

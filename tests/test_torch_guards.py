@@ -13,6 +13,7 @@
 import ast
 import os
 import pathlib
+import time
 
 import numpy as np
 import pytest
@@ -48,7 +49,9 @@ def _forbidden(name: str) -> bool:
 def test_port_and_smoke_never_import_jax_or_reference():
     files = sorted(f for f in PORT.rglob("*.py")  # build/ is generated
                    if "build" not in f.relative_to(PORT).parts)
-    files.append(REPO / "chip_smoke.py")
+    # the card scripts beside the package too
+    files += [REPO / "chip_smoke.py", REPO / "k1_ab.py",
+              REPO / "meta_log_ab.py"]
     assert len(files) > 17
     assert PORT / "ops" / "rs_mxu.py" in files
     # the serving plane: the server, the scrubber, stats, qos, httpd
@@ -79,7 +82,7 @@ def test_port_and_smoke_never_import_jax_or_reference():
                 "utils/chunk_cache.py", "utils/cipher.py",
                 "utils/aesgcm_compat.py", "stats/autocap.py",
                 "notification/queue.py", "remote_storage/remote_storage.py",
-                "pb/remote_pb2.py", "utils/unported.py",
+                "pb/remote_pb2.py",
                 # the gRPC plane
                 "pb/master_pb2.py", "pb/volume_server_pb2.py",
                 "pb/filer_pb2.py", "pb/etcdkv_pb2.py", "utils/tls.py",
@@ -99,8 +102,21 @@ def test_port_and_smoke_never_import_jax_or_reference():
                 "sim/harness.py", "sim/incidents.py",
                 "filer/redis_store.py", "filer/mysql_store.py",
                 "filer/postgres_store.py", "filer/mongodb_store.py",
-                "filer/cassandra_store.py", "filer/elastic_store.py"):
+                "filer/cassandra_store.py", "filer/elastic_store.py",
+                # replication, mount, the mq broker, the external
+                # notification queues and the Azure client
+                "replication/__init__.py", "replication/sink.py",
+                "replication/sync.py", "replication/remote_sync.py",
+                "mount/__init__.py", "mount/fuse_kernel.py",
+                "mount/meta_cache.py", "mount/page_writer.py",
+                "mount/weedfs.py", "mount/mount_grpc.py",
+                "pb/mount_pb2.py", "mq/__init__.py", "mq/broker.py",
+                "mq/broker_grpc.py", "pb/mq_pb2.py",
+                "notification/kafka_queue.py", "notification/sqs_queue.py",
+                "notification/pubsub_queue.py",
+                "remote_storage/azure_client.py"):
         assert PORT / rel in files, rel
+    assert not (PORT / "utils" / "unported.py").exists()
     bad = {str(f.relative_to(REPO)): [n for n in _imported_modules(f)
                                       if _forbidden(n)]
            for f in files}
@@ -348,8 +364,9 @@ def test_control_plane_raises_for_what_is_not_ported(monkeypatch):
     ported: the master serves one on grpc_port (also as `master -grpc` on
     the command line), the client's push mode starts its KeepConnected
     loop, and the shell probes each volume server's plane once, caching a
-    miss. What stays unported raises where it is reached: filer.sync
-    between two filers (replication/), before it dials either."""
+    miss. `filer.sync` between two filers (replication/), once raising
+    NotImplementedError, starts its two one-way syncs, each excluding
+    the other's signature, and opens no device."""
     from seaweedfs_tpu_torch import cli
     from seaweedfs_tpu_torch.client.wdclient import MasterClient
     from seaweedfs_tpu_torch.server import master
@@ -375,8 +392,18 @@ def test_control_plane_raises_for_what_is_not_ported(monkeypatch):
         assert mc._kc_thread.is_alive()
     finally:
         mc.stop()
-    with pytest.raises(NotImplementedError, match="gateway slice"):
-        cli.main(["filer.sync", "-a", "127.0.0.1:1", "-b", "127.0.0.1:2"])
+    from seaweedfs_tpu_torch.replication import sync
+    started = []
+    monkeypatch.setattr(sync.FilerSync, "start",
+                        lambda self, since_ns=0: started.append(self))
+    monkeypatch.setattr(cli, "_wait_forever", lambda: None)
+    cli.main(["filer.sync", "-a", "127.0.0.1:1", "-b", "127.0.0.1:2"])
+    assert [(s.source, s.replicator.sink.filer_url) for s in started] == [
+        ("127.0.0.1:1", "127.0.0.1:2"), ("127.0.0.1:2", "127.0.0.1:1")]
+    a_to_b, b_to_a = started
+    assert a_to_b.exclude_signature == b_to_a.replicator.sink.signature
+    assert b_to_a.exclude_signature == a_to_b.replicator.sink.signature
+    assert not torch.cuda.is_initialized()
     sh = ShellContext("127.0.0.1:1")
     assert sh._grpc_client("127.0.0.1:2") is None
     assert sh._grpc_clients == {"127.0.0.1:2": None}
@@ -405,37 +432,125 @@ def test_volume_command_raises_without_cuda_before_binding(no_cuda,
     assert not (tmp_path / "v").exists()
 
 
+class _FakeFuse:
+    """FuseConnection's stand-in: no kernel mount. serve_forever drives
+    the WeedFS it was given (a file created, written, read back), then
+    ends as Ctrl-C ends a mount."""
+
+    served: list = []
+
+    def __init__(self, ops, mountpoint):
+        self.ops, self.mountpoint = ops, mountpoint
+
+    def serve_forever(self, background=False):
+        from seaweedfs_tpu_torch.mount.fuse_kernel import ROOT_ID
+        attr, fh = self.ops.create(ROOT_ID, "probe.txt", 0o644)
+        self.ops.write(attr.ino, fh, 0, b"no device")
+        self.ops.release(attr.ino, fh)
+        got = self.ops.lookup(ROOT_ID, "probe.txt")
+        fh = self.ops.open(got.ino)
+        _FakeFuse.served.append(self.ops.read(got.ino, fh, 0, 64))
+        self.ops.release(got.ino, fh)
+        raise KeyboardInterrupt
+
+    def close(self):
+        pass
+
+
 @pytest.mark.parametrize("argv,slice_", [
     (["filer", "-ftp", "-mq"], "the gateway slice"),
     (["fuse", "/mnt/weed"], "the gateway slice"),
     (["mount", "/mnt/weed"], "the gateway slice"),
 ])
 def test_filer_gateways_and_mount_raise_naming_their_slice(argv, slice_,
+                                                           no_cuda,
                                                            monkeypatch):
+    """`filer -ftp -mq`, `fuse` and `mount` (the gateway slice, once
+    raising NotImplementedError) run in the port and take no device:
+    with no CUDA device the filer serves its FTP gateway and its mq
+    broker's gRPC plane, and a mount (here over a private memory store,
+    with FuseConnection's stand-in in place of the kernel) writes and
+    reads a file; the card is never opened."""
     from seaweedfs_tpu_torch import cli
-    from seaweedfs_tpu_torch.server import filer_server
-    from seaweedfs_tpu_torch.utils import httpd
-    bound = []
-    for mod in (httpd, filer_server):
-        monkeypatch.setattr(mod, "HttpServer",
-                            lambda *a, **kw: bound.append(a))
-    with pytest.raises(NotImplementedError, match=slice_):
-        cli.main(argv)
-    assert bound == []
+    from seaweedfs_tpu_torch.mount import fuse_kernel
+    from seaweedfs_tpu_torch.mq.broker_grpc import MqClient
+    served = []
+    monkeypatch.setattr(cli, "_serve_until_signal",
+                        lambda *srv, ready="": served.extend(srv))
+    monkeypatch.setattr(fuse_kernel, "FuseConnection", _FakeFuse)
+    _FakeFuse.served = []
+    dead = "127.0.0.1:1"  # nothing listens: announces retry quietly
+    if argv[0] == "filer":
+        port, ftp = free_grpc_ports(2)
+        cli.main([*argv, "-port", str(port), "-ftpPort", str(ftp),
+                  "-mqPort", "0", "-master", dead])
+        try:
+            assert [type(s).__name__ for s in served] == [
+                "_MqPlane", "FtpServer", "FilerServer"]
+            client = MqClient(f"127.0.0.1:{served[0].port}", tls=None)
+            try:
+                assert client.configure_topic("g", "t", 2) == 2
+                assert client.list_topics() == [
+                    {"namespace": "g", "topic": "t", "partition_count": 2}]
+            finally:
+                client.close()
+        finally:
+            for srv in served:
+                srv.stop()
+    elif argv[0] == "fuse":
+        cli.main([*argv, "-o", f"store=memory,master={dead}"])
+    else:
+        cli.main([*argv, "-store", "memory", "-master", dead])
+    if argv[0] != "filer":
+        assert _FakeFuse.served == [b"no device"]
+    assert not torch.cuda.is_initialized()
+
+
+@pytest.fixture(scope="module")
+def filer_on_master():
+    """A port master and a port filer (memory store, small files inline)
+    registered with it, 20 files under /tail written through the filer."""
+    from seaweedfs_tpu_torch.server.filer_server import FilerServer
+    from seaweedfs_tpu_torch.server.master import MasterServer
+    from seaweedfs_tpu_torch.utils.httpd import http_call, http_json
+    m = MasterServer()
+    m.start()
+    fs = FilerServer(m.url)
+    fs.start()
+    try:
+        deadline = time.monotonic() + 20
+        while not http_json("GET", f"http://{m.url}/cluster/nodes"
+                                   f"?type=filer")["cluster_nodes"]:
+            assert time.monotonic() < deadline, "the filer to register"
+            time.sleep(0.05)
+        for i in range(20):
+            assert http_call("POST", f"http://{fs.url}/tail/f{i}.txt",
+                             body=b"x" * i)[0] < 300
+        yield m, fs
+    finally:
+        fs.stop()
+        m.stop()
 
 
 @pytest.mark.parametrize("line", ["fs.meta.tail", "fs.meta.tail -n 4",
                                   "mount.configure -collectionCapacity 1",
                                   "mq.topic.list"])
-def test_repl_filer_commands_raise(line):
-    """What the REPL's filer families reach and the port does not have
-    yet (replication/sync.py behind fs.meta.tail, the mq broker, mount's
-    admin plane) raises NotImplementedError naming the rest of the
-    gateway slice; nothing is sent anywhere. The fs.* family and
-    volume.fsck run against the port's filer
-    (tests/test_torch_filer_server.py), the s3.* and remote.* families
-    too (tests/test_torch_gateway_cross.py)."""
+def test_repl_filer_commands_raise(line, filer_on_master, no_cuda):
+    """What the REPL's filer families reach (replication/sync.py behind
+    fs.meta.tail, the mq broker's topics, mount's admin plane), once
+    raising NotImplementedError, answers from a port master and filer,
+    with no device: fs.meta.tail the events it read (16 by default),
+    mount.configure the mounts it reached (none here), mq.topic.list the
+    topics under /topics (none here). The fs.* family and volume.fsck run
+    against the port's filer (tests/test_torch_filer_server.py), the
+    s3.* and remote.* families too (tests/test_torch_gateway_cross.py)."""
     from seaweedfs_tpu_torch.shell.commands import ShellContext
     from seaweedfs_tpu_torch.shell.repl import run_command
-    with pytest.raises(NotImplementedError, match="gateway slice"):
-        run_command(ShellContext("127.0.0.1:1"), line)
+    m, _ = filer_on_master
+    out = run_command(ShellContext(m.url), line + " -pathPrefix /tail"
+                      if line.startswith("fs.meta.tail") else line)
+    assert out == {"fs.meta.tail": {"events": 16},
+                   "fs.meta.tail -n 4": {"events": 4},
+                   "mount.configure -collectionCapacity 1": {"mounts": {}},
+                   "mq.topic.list": {"topics": []}}[line]
+    assert not torch.cuda.is_initialized()
